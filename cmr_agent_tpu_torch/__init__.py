@@ -1,0 +1,7 @@
+"""PyTorch + CUDA port of cmr_agent_tpu for NVIDIA Hopper (H100).
+
+The serving path of the JAX package (KITTI geo forward + the deterministic
+10-step refinement episode) with its four TPU kernels rewritten by hand in
+CUDA C++ (``csrc/``). The JAX package stays the reference; this package
+imports nothing of it. Entry point: :mod:`cmr_agent_tpu_torch.serve`.
+"""
