@@ -16,9 +16,9 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
    that call's time;
 4. the serving path itself through ``serve.build_workload``: KITTI width,
    batch 8, random weights from a seed, geo forward + 10-step episode, in
-   f32 (then again with the kernels swapped for their plain versions, to
-   compare geo outputs, per-step logits, actions and final poses) and in
-   bf16 with the int8 raster. It shows each kernel's launch count over one
+   f32 and in bf16 with the int8 raster, each then again with the kernels
+   swapped for their plain versions to compare per-step logits, actions
+   and final poses (and, in f32, the geo outputs). It shows each kernel's launch count over one
    episode, the median pairs/s over timed episodes, and a profile of one
    episode (device busy share, the port kernels' device time, the top
    kernels by device time).
@@ -180,6 +180,8 @@ def check_kernels(torch, kernels, dev):
             pcT, feat, ab, counts, IMG_H, IMG_W, dt)
         assert torch.equal(gc, wc), mode
         assert wc.sum() > 0.3 * counts.sum().item(), mode
+        if mode == "f32":
+            landed = int(wc.sum().item())
         torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
         modes[mode] = dict(
             err=(gm - wm).abs().max().item(),
@@ -190,16 +192,18 @@ def check_kernels(torch, kernels, dev):
         line("raster_mode", mode=mode, max_abs_err=modes[mode]["err"],
              kernel_ms=f"{modes[mode]['ms']:.5f}",
              plain_ms=f"{modes[mode]['plain_ms']:.5f}")
+    # every valid row's xyz is read and projected; only the rows that land
+    # in the frame need their F features read and added
     valid = int(counts.sum().item())
     out_bytes = B * IMG_H * IMG_W * (F + 1) * 4
-    nbytes = valid * (3 + F) * 4 + B * 16 * 4 + out_bytes
+    nbytes = valid * 3 * 4 + landed * F * 4 + B * (12 + 1) * 4 + out_bytes
     rows["segment_mean_count_image_project"] = dict(
         max_abs_err=modes["f32"]["err"], ms=modes["f32"]["ms"],
         plain_ms=modes["f32"]["plain_ms"], library_ms=None,
         tol="counts exact; means rtol 1e-5 atol 1e-6 (f32, bf16, int8)",
         shape=f"[{B},3,{RASTER_K}] F={F} {IMG_H}x{IMG_W} f32, "
-              f"{valid} valid rows",
-        bound=bound(nbytes, (20.0 + F) * valid))
+              f"{valid} valid rows, {landed} in the frame",
+        bound=bound(nbytes, 20.0 * valid + (F + 1.0) * landed))
 
     for name, r in rows.items():
         line("kernel", name=name, shape=repr(r["shape"]), tol=repr(r["tol"]),
@@ -229,15 +233,18 @@ def plain_kernels(kernels):
     return swap()
 
 
-def compare_episodes(torch, got, want, logit_tol: float):
-    """Per-step logits and actions while the action history agrees, then
-    the final poses. Returns (steps compared, max logit diff)."""
+def compare_episodes(torch, got, want, atol: float, rtol: float = 0.0):
+    """Per-step logits (within ``atol + rtol * max|logit|`` of the step) and
+    actions (where the top-2 margin exceeds that tolerance) while the action
+    history agrees, then the final poses. Returns (steps compared, max
+    logit diff)."""
     max_diff, compared = 0.0, 0
     for (gr, gt), (wr, wt) in zip(got["steps"], want["steps"]):
         for g, w in ((gr, wr), (gt, wt)):
             diff = (g - w).abs().max().item()
             max_diff = max(max_diff, diff)
-            assert diff <= logit_tol, f"logits differ by {diff}"
+            logit_tol = atol + rtol * w.abs().max().item()
+            assert diff <= logit_tol, f"logits differ by {diff} > {logit_tol}"
             top2 = torch.topk(w, 2, dim=-1).values
             sure = top2[..., 0] - top2[..., 1] > logit_tol
             assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
@@ -281,22 +288,28 @@ def run_path(torch, kernels, serve, kitti_config, dtype: str):
          episode_s=",".join(f"{t:.4f}" for t in times))
 
     profile_episode(torch, serve, model, agent, cfg, batch)
-    if dtype == "float32":
-        got = serve.serve_episode(model, agent, cfg, batch)
+    # the same episode with the kernels swapped for their plain versions.
+    # f32: the kernels differ from them only by the order of f32 atomic
+    # sums. bf16: a sum that differs in its last f32 bit can round to the
+    # neighbouring bf16 value, about 2^-8 relative, and that propagates
+    # through the bf16 layers to the logits.
+    atol, rtol = (1e-3, 0.0) if dtype == "float32" else (1e-2, 3e-2)
+    got = serve.serve_episode(model, agent, cfg, batch)
+    with torch.inference_mode():
+        geo = model(batch)
+    with plain_kernels(kernels):
+        want = serve.serve_episode(model, agent, cfg, batch)
         with torch.inference_mode():
-            geo = model(batch)
-        with plain_kernels(kernels):
-            want = serve.serve_episode(model, agent, cfg, batch)
-            with torch.inference_mode():
-                geo_plain = model(batch)
+            geo_plain = model(batch)
+    if dtype == "float32":
         for key in ("pc_geo_feat", "img_geo_feat", "pc_overlap_logits"):
             torch.testing.assert_close(geo[key], geo_plain[key], rtol=0,
                                        atol=1e-4)
-        steps, diff = compare_episodes(torch, got, want, logit_tol=1e-3)
-        line("episode_vs_plain", dtype=dtype, steps_compared=steps,
-             max_logit_diff=diff,
-             final_pose_max_diff=(got["final_pose"] - want["final_pose"]
-                                  ).abs().max().item())
+    steps, diff = compare_episodes(torch, got, want, atol, rtol)
+    line("episode_vs_plain", dtype=dtype, logit_atol=atol, logit_rtol=rtol,
+         steps_compared=steps, max_logit_diff=diff,
+         final_pose_max_diff=(got["final_pose"] - want["final_pose"]
+                              ).abs().max().item())
     return counts, rate
 
 

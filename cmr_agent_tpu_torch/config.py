@@ -1,11 +1,17 @@
 """Frozen configuration dataclasses (the port's own copy).
 
-Same fields and defaults as the JAX package's ``Config`` so that a config
-built with the same overrides describes the same model, dataset and
-episode. Differences: ``torch_dtype()`` replaces ``jnp_dtype()``, and
-there is no ``use_pallas`` switch — on the card the hand-written kernels
-always run, on the CPU their plain PyTorch versions do (the tensor's device
-decides, see :mod:`cmr_agent_tpu_torch.ops.kernels`).
+The JAX package's ``Config`` fields and defaults, less the settings the
+port does not serve yet: it serves the 4-DoF agent, the reference 5-channel
+observation of the full cloud and the ``"megatopk"`` raster (ranked top-K
+compaction once per episode, then the projection-fused raster kernel every
+step). So ``is_6_dof``, ``raster_mode``, ``obs3d_source``,
+``pose_aware_observation``, ``obs_bearing_channels``, ``policy_aux_state``
+and ``bearing_init`` are not fields here, and passing one raises
+``TypeError`` instead of serving something else. Other differences:
+``torch_dtype()`` replaces ``jnp_dtype()``, and there is no ``use_pallas``
+switch — on the card the hand-written kernels always run, on the CPU their
+plain PyTorch versions do (the tensor's device decides, see
+:mod:`cmr_agent_tpu_torch.ops.kernels`).
 """
 
 from __future__ import annotations
@@ -89,8 +95,7 @@ class Config:
     linear_attention_num: int = 4
     la_head_num: int = 8
 
-    # <----------- agent / RL ---------->
-    is_6_dof: bool = False
+    # <----------- agent / RL (4-DoF: yaw + x/z steps) ---------->
     action_num: int = 10
     r_steps_deg: Tuple[float, ...] = _R_STEPS_DEG
     t_steps: Tuple[float, ...] = _T_STEPS
@@ -111,23 +116,14 @@ class Config:
 
     # <----------- serving knobs ---------->
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    # The port serves raster_mode "megatopk" only: the ranked top-K
-    # compaction once per episode, then the projection-fused raster kernel
-    # every step. The other JAX modes come with later slices.
-    raster_mode: str = "megatopk"
     raster_topk: int = 20480
     # int8 observation raster: applies to bf16 episodes only (as in the
     # JAX package's episode gating); a no-op in f32 episodes.
     raster_int8: bool = True
-    obs3d_source: str = "full"
-    pose_aware_observation: bool = False
-    obs_bearing_channels: bool = False
-    policy_aux_state: bool = False
-    bearing_init: bool = False
 
     @property
     def obs3d_channels(self) -> int:
-        return 5 + (2 if self.obs_bearing_channels else 0)
+        return 5
 
     # <----------- derived geometry ---------->
     @property
@@ -162,11 +158,11 @@ class Config:
 
     @property
     def degree_r(self) -> int:
-        return 3 if self.is_6_dof else 1
+        return 1
 
     @property
     def degree_t(self) -> int:
-        return 3 if self.is_6_dof else 2
+        return 2
 
     def torch_dtype(self) -> torch.dtype:
         """Activation compute dtype (params stay float32)."""
@@ -178,8 +174,7 @@ class Config:
         when K would cover the whole cloud (the JAX package then rasters
         the full cloud; the port compacts to ``num_pt`` rows instead,
         which gives the same pixels)."""
-        if (self.raster_mode in ("topk", "pack", "mega", "megatopk")
-                and 0 < self.raster_topk < self.num_pt):
+        if 0 < self.raster_topk < self.num_pt:
             return self.raster_topk
         return None
 

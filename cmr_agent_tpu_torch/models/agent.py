@@ -51,9 +51,6 @@ class CMRAgent(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.obs_bearing_channels or cfg.policy_aux_state:
-            raise NotImplementedError(
-                "the port serves the reference 5-channel observation only")
         dt = cfg.torch_dtype()
         f = cfg.embed_dim
         self.cfg = cfg

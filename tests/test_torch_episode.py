@@ -110,6 +110,18 @@ def test_build_workload_defaults_to_cuda():
         serve.build_workload(tiny_config(), batch_size=1)
 
 
+@pytest.mark.parametrize("setting", [
+    dict(is_6_dof=True), dict(raster_mode="pack"),
+    dict(raster_mode="compact"), dict(obs3d_source="compact"),
+    dict(pose_aware_observation=True), dict(obs_bearing_channels=True),
+    dict(policy_aux_state=True), dict(bearing_init=True)])
+def test_config_refuses_settings_the_port_does_not_serve(setting):
+    """A JAX serving setting the port has no path for fails at config time
+    instead of running the megatopk 4-DoF episode in its place."""
+    with pytest.raises(TypeError):
+        tiny_config(**setting)
+
+
 def test_build_workload_on_cpu_runs_the_episode():
     cfg = tiny_config(raster_topk=1024, action_num=3)
     batch, model, agent, episode = serve.build_workload(cfg, 2, device="cpu")
