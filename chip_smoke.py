@@ -21,7 +21,21 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
    and final poses (and, in f32, the geo outputs). It shows each kernel's launch count over one
    episode, the median pairs/s over timed episodes, and a profile of one
    episode (device busy share, the port kernels' device time, the top
-   kernels by device time).
+   kernels by device time);
+5. the training path's kernels (segment sum, softmax-attend backward,
+   pixel-id image raster in f32 and bf16) at the training shapes against
+   their plain versions, the backward kernels also against
+   ``torch.autograd`` of the plain forward, with the same timings;
+6. the geo train step (``train.train_geo``) at KITTI width, B=8, f32:
+   launch counts of one step, its peak device memory, the median steps/s
+   with dropout on, a profile of one step, then its gradients and three
+   steps' losses against a twin with the plain kernels (dropout off);
+7. the agent's BC + PPO training (``train.train_agent``) on the frozen
+   geo outputs, as ``cli/train_agent.py`` drives it: ``num_trajectory``
+   stochastic rollouts into the buffer, then shuffled full minibatches of
+   ``ppo_batch_size`` through the update, with launch counts, rollout and
+   update times and a profile of one rollout; then an ``expert_beta=1.0``
+   rollout and one update against their plain-kernel twins.
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -30,6 +44,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -66,6 +81,19 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rand_factory(torch, seed: int, dev):
+    """``(gen, randn, randint)`` drawing on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+    return gen, randn, randint
+
+
 def bound(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -74,15 +102,7 @@ def bound(nbytes: float, ops: float):
 
 def check_kernels(torch, kernels, dev):
     """Phase 3: every kernel vs its plain version at the serving shapes."""
-    gen = torch.Generator().manual_seed(1234)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev)
-
-    def randint(lo, hi, *shape):
-        return torch.randint(lo, hi, shape, generator=gen,
-                             dtype=torch.int32).to(dev)
-
+    gen, randn, randint = rand_factory(torch, 1234, dev)
     rows = {}
 
     # 1. segment softmax-attend: 3x points -> nodes, 1x nodes -> proxies
@@ -205,6 +225,11 @@ def check_kernels(torch, kernels, dev):
               f"{valid} valid rows, {landed} in the frame",
         bound=bound(nbytes, 20.0 * valid + (F + 1.0) * landed))
 
+    print_rows(rows)
+    return rows
+
+
+def print_rows(rows) -> None:
     for name, r in rows.items():
         line("kernel", name=name, shape=repr(r["shape"]), tol=repr(r["tol"]),
              max_abs_err=r["max_abs_err"], kernel_ms=f"{r['ms']:.5f}",
@@ -212,7 +237,6 @@ def check_kernels(torch, kernels, dev):
              bound_us=f"{r['bound'][0] * 1e3:.2f}({r['bound'][1]})",
              library_ms=("none" if r["library_ms"] is None
                          else f"{r['library_ms']:.5f}"))
-    return rows
 
 
 def plain_kernels(kernels):
@@ -273,7 +297,9 @@ def run_path(torch, kernels, serve, kitti_config, dtype: str):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     line("launches", dtype=dtype, **counts)
-    assert all(n > 0 for n in counts.values()), counts
+    # eval episodes run the serving kernels and never the training ones
+    assert all(counts[k] > 0 for k in SERVING_KERNELS), counts
+    assert all(counts[k] == 0 for k in TRAINING_KERNELS), counts
     assert final.shape == (B, 4, 4) and torch.isfinite(final).all()
 
     times = []
@@ -313,26 +339,44 @@ def run_path(torch, kernels, serve, kitti_config, dtype: str):
     return counts, rate
 
 
+SERVING_KERNELS = ("segment_softmax_attend", "gather_rows", "knn",
+                   "segment_mean_count_image_project")
+TRAINING_KERNELS = ("segment_sum", "segment_softmax_attend_backward",
+                    "segment_mean_count_image")
 PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
                      "normalise_kernel", "gather_rows_kernel", "knn_kernel",
-                     "raster_project_kernel", "raster_finalise_kernel")
+                     "raster_project_kernel", "raster_finalise_kernel",
+                     "segment_sum_kernel", "softmax_backward_kernel",
+                     "raster_image_kernel")
 
 
 def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
-    """Device time of one episode by kernel (torch.profiler, CUPTI): the
-    device's busy share of the wall time and the port kernels' share."""
+    """Device time of one episode by kernel (see :func:`profile_call`)."""
+    profile_call(torch, lambda: serve.serve_episode(model, agent, cfg, batch),
+                 dtype=cfg.compute_dtype)
+
+
+def profile_call(torch, fn, unprofiled_ms=None, **tags) -> None:
+    """Device time of one call of ``fn`` by kernel (torch.profiler, CUPTI):
+    the device's busy share of the wall time and the port kernels' share.
+    The profiler slows the host's launches, so where the caller timed the
+    same call without it (``unprofiled_ms``) the share of that time is
+    printed too. User annotations (``Optimizer.step#Adam.step``) span
+    kernels already counted and are left out."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve.serve_episode(model, agent, cfg, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
     per_name = {}
     for e in prof.key_averages():     # device-side rows: kernels, copies
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if (getattr(e, "device_type", None) != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
@@ -340,13 +384,348 @@ def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
     device_ms = sum(per_name.values())
     ours = sum(ms for k, ms in per_name.items()
                if any(n in k for n in PORT_KERNEL_NAMES))
-    line("profile", dtype=cfg.compute_dtype, wall_ms=f"{wall_ms:.3f}",
+    line("profile", **tags, wall_ms=f"{wall_ms:.3f}",
          device_ms=f"{device_ms:.3f}",
          device_busy_share=(f"{device_ms / wall_ms:.3f}" if device_ms
                             else "not measured"),
          port_kernels_ms=f"{ours:.3f}")
+    if unprofiled_ms is not None:
+        line("profile_unprofiled", **tags, wall_ms=f"{unprofiled_ms:.3f}",
+             device_busy_share=f"{device_ms / unprofiled_ms:.3f}")
     for k, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         line("profile_top", ms=f"{ms:.3f}", name=repr(k[:90]))
+
+
+def check_train_kernels(torch, kernels, dev):
+    """Phase 5: the training path's kernels vs their plain versions at the
+    training shapes (and the backward kernels vs torch.autograd of the
+    plain forward)."""
+    gen, randn, randint = rand_factory(torch, 4321, dev)
+    rows = {}
+
+    def routed_out(idx, m):
+        """A copy of ``idx`` with rows routed out both ways (>= M, -1)."""
+        out = idx.clone()
+        out[:, :64] = m + 3
+        out[:, 64:128] = -1
+        return out
+
+    # 5. segment sum (the gather's backward): points -> nodes, the knn
+    #    neighbourhoods -> nodes, nodes -> proxies
+    for n, m in ((N_PT, N_NODE), (N_NODE * KNN_K, N_NODE), (N_NODE, N_PROXY)):
+        data, idx = randn(B, n, F), randint(0, m, B, n)
+        for ix in (idx, routed_out(idx, m)):
+            got = kernels.segment_sum(data, ix, m)
+            want = kernels.segment_sum_plain(data, ix, m)
+            # f32 atomics add in another order on every run
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = (got - want).abs().max().item()
+        table = randn(B, m, F).requires_grad_()
+        table_p = table.detach().clone().requires_grad_()
+        g = randn(B, n, F)
+        kernels.GatherRowsFn.apply(table, idx).backward(g)
+        kernels.gather_rows_plain(table_p, idx).backward(g)
+        torch.testing.assert_close(table.grad, table_p.grad, rtol=1e-5,
+                                   atol=1e-5)
+        idx64 = idx.long()[..., None].expand(B, n, F)
+        r = dict(
+            max_abs_err=err, tol="rtol 1e-5 atol 1e-5 (f32 atomics reorder "
+                                 "sums); gather VJP vs autograd likewise",
+            shape=f"[{B},{n},{F}]->[{B},{m},{F}]",
+            ms=cuda_ms(lambda: kernels.segment_sum(data, idx, m), 20),
+            plain_ms=cuda_ms(lambda: kernels.segment_sum_plain(data, idx, m),
+                             10),
+            library_ms=cuda_ms(lambda: torch.zeros(B, m, F, device=dev)
+                               .scatter_add_(1, idx64, data), 20),
+            bound=bound(B * (n * F * 4 + n * 4 + m * F * 4), B * n * F))
+        rows.setdefault("segment_sum", r)
+        print_rows({f"segment_sum[{n}->{m}]": r})
+
+    # 6. softmax-attend backward, points -> nodes
+    n, m = N_PT, N_NODE
+    attn, values = randn(B, n, F, scale=2.0), randn(B, n, F)
+    idx = routed_out(randint(0, m, B, n), m)
+    out, sums, gmax = kernels.segment_softmax_attend(attn, values, idx, m,
+                                                     return_stats=True)
+    g = randn(B, m, F)
+    args = (attn, values, idx, out, sums, gmax, g, m)
+    got = kernels.segment_softmax_attend_backward(*args)
+    want = kernels.segment_softmax_attend_backward_plain(*args)
+    err = 0.0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        err = max(err, (a - b).abs().max().item())
+    a_, v_ = (t.detach().clone().requires_grad_() for t in (attn, values))
+    kernels.segment_softmax_attend_plain(a_, v_, idx, m).backward(g)
+    # autograd differentiates the plain forward's division, another f32
+    # formula: its rounding scales with the largest terms
+    for a, b in zip(got, (a_.grad, v_.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * b.abs().max().item())
+    valid = int(((idx >= 0) & (idx < m)).sum().item())
+    rows["segment_softmax_attend_backward"] = dict(
+        max_abs_err=err, tol="rtol 1e-5 atol 1e-6 vs the plain closed form; "
+                             "rtol 1e-4 atol 1e-5 max|g| vs autograd",
+        shape=f"[{B},{n},{F}] idx->[{B},{m},{F}], {valid} rows in range",
+        ms=cuda_ms(lambda: kernels.segment_softmax_attend_backward(*args), 20),
+        plain_ms=cuda_ms(
+            lambda: kernels.segment_softmax_attend_backward_plain(*args), 10),
+        library_ms=None,
+        bound=bound(2 * valid * F * 4 + B * n * 4 + 3 * B * m * F * 4
+                    + B * F * 4 + 2 * B * n * F * 4, 6.0 * valid * F))
+    print_rows({"segment_softmax_attend_backward":
+                rows["segment_softmax_attend_backward"]})
+
+    # 7. pixel-id image raster: valid-first rows (a top-K compacted set),
+    #    a third of the valid prefix outside the frame
+    hw = IMG_H * IMG_W
+    counts = torch.randint(RASTER_K // 4, RASTER_K + 1, (B, 1), generator=gen)
+    row = torch.arange(RASTER_K)[None, :]
+    lands = (row < counts) & (torch.rand(B, RASTER_K, generator=gen) > 1 / 3)
+    ids = torch.where(lands, torch.randint(0, hw, (B, RASTER_K),
+                                           generator=gen),
+                      torch.full((B, RASTER_K), hw)).to(torch.int32).to(dev)
+    landed = int(lands.sum().item())
+    feat = randn(B, RASTER_K, F)
+    gm = randn(B, hw, F)
+    modes = {}
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        data = feat if dt is None else feat.to(dt)
+        gmv, gc = kernels.segment_mean_count_image(data, ids, IMG_H, IMG_W, dt)
+        wmv, wc = kernels.segment_mean_count_image_plain(data, ids, IMG_H,
+                                                         IMG_W, dt)
+        assert torch.equal(gc, wc) and int(gc.sum().item()) == landed, mode
+        torch.testing.assert_close(gmv, wmv, rtol=1e-5, atol=1e-6)
+        d = data.detach().clone().requires_grad_()
+        d_p = data.detach().clone().requires_grad_()
+        kernels.SegmentMeanCountImageFn.apply(d, ids, IMG_H, IMG_W,
+                                              dt)[0].backward(gm)
+        kernels.segment_mean_count_image_plain(d_p, ids, IMG_H, IMG_W,
+                                               dt)[0].backward(gm)
+        torch.testing.assert_close(d.grad, d_p.grad, rtol=1e-5, atol=1e-6)
+        elt = data.element_size()
+        modes[mode] = dict(
+            max_abs_err=(gmv - wmv).abs().max().item(),
+            tol="counts exact; means rtol 1e-5 atol 1e-6; VJP vs autograd "
+                "likewise",
+            shape=f"[{B},{RASTER_K},{F}] {mode} -> {IMG_H}x{IMG_W}, "
+                  f"{landed} rows land",
+            ms=cuda_ms(lambda: kernels.segment_mean_count_image(
+                data, ids, IMG_H, IMG_W, dt), 20),
+            plain_ms=cuda_ms(lambda: kernels.segment_mean_count_image_plain(
+                data, ids, IMG_H, IMG_W, dt), 10),
+            library_ms=None,
+            bound=bound(B * RASTER_K * 4 + landed * F * elt
+                        + B * hw * (F + 1) * 4,
+                        (F + 1.0) * landed + B * hw * F))
+        print_rows({f"segment_mean_count_image[{mode}]": modes[mode]})
+    rows["segment_mean_count_image"] = modes["f32"]
+    return rows, modes
+
+
+def timed(torch, fn):
+    """``(result, seconds)`` of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_geo_train(torch, kernels, serve, cfg, dev):
+    """Phase 6: the geo train step at KITTI width, B=8, f32. Returns
+    (launch counts of one step, the trained state, the batch)."""
+    from cmr_agent_tpu_torch.models.layers import set_dropout_rate
+    from cmr_agent_tpu_torch.train import train_geo
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
+    step = train_geo.make_geo_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = train_geo.create_geo_state(cfg, dev, seed=0)
+    params = sum(p.numel() for p in state.model.parameters())
+    step(state, batch, gen)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    metrics, _ = timed(torch, lambda: step(state, batch, gen))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    line("geo_train_launches", per_step=True, **counts)
+    for k in ("segment_softmax_attend", "gather_rows", "knn", "segment_sum",
+              "segment_softmax_attend_backward"):
+        assert counts[k] > 0, (k, counts)
+    assert counts["segment_mean_count_image"] == 0, counts
+    assert all(torch.isfinite(v) for v in metrics.values()), metrics
+    line("geo_train_memory", batch=B, params=params,
+         allocated_before_step_gib=f"{before / 2**30:.3f}",
+         peak_step_gib=f"{peak / 2**30:.3f}")
+    times, losses = [], []
+    for _ in range(5):
+        m, t = timed(torch, lambda: step(state, batch, gen))
+        times.append(t)
+        losses.append(m["loss"].item())
+    line("geo_train_throughput", batch=B, dropout="on",
+         steps_per_s=f"{1 / statistics.median(times):.4f}",
+         samples_per_s=f"{B / statistics.median(times):.3f}",
+         step_s=",".join(f"{t:.4f}" for t in times),
+         loss=",".join(f"{v:.6f}" for v in losses))
+    profile_call(torch, lambda: step(state, batch, gen),
+                 unprofiled_ms=statistics.median(times) * 1e3,
+                 phase="geo_train")
+
+    # twins from the same seed with the kernels and with the plain
+    # versions, dropout off: gradients of one forward/backward, then three
+    # steps' losses
+    twins = {}
+    for name in ("kernels", "plain"):
+        twin = train_geo.create_geo_state(cfg, dev, seed=0)
+        set_dropout_rate(twin.model, 0.0)
+        twins[name] = twin
+    grads, losses = {}, {}
+
+    def grads_of(model, b):
+        model.zero_grad(set_to_none=True)
+        model(b, with_loss=True)["loss"].backward()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}
+
+    # the same plain twin on the cloud nudged by one part in 2^23: how far a
+    # last-bit change already moves each f32 gradient (a conv or dense
+    # layer before batch-statistics BatchNorm has a weight gradient of
+    # heavily cancelling sums, see tests/test_torch_train_geo.py)
+    nudged = dict(batch, pc=batch["pc"] * (1.0 + 2.0 ** -23))
+    for name, twin in twins.items():
+        with (plain_kernels(kernels) if name == "plain"
+              else contextlib.nullcontext()):
+            twin.model.train()
+            grads[name] = grads_of(twin.model, batch)
+            if name == "plain":
+                grads["nudged"] = grads_of(twin.model, nudged)
+            losses[name] = [step(twin, batch)["loss"].item()
+                            for _ in range(3)]
+    worst, beyond, worst_vs_floor = 0.0, 0, 0.0
+    for n, g in grads["kernels"].items():
+        want = grads["plain"][n]
+        scale = want.abs().max().item()
+        diff = (g - want).abs().max().item()
+        floor = (grads["nudged"][n] - want).abs().max().item()
+        # f32 atomics reorder the segment sums of every backward: within
+        # 1e-3 max|g|, or within 4x what a last-bit nudge of the input moves
+        tol = max(1e-3 * scale, 4.0 * floor) + 1e-7
+        assert diff <= tol, (n, diff, scale, floor)
+        worst = max(worst, diff / tol)
+        if diff > 1e-3 * scale + 1e-7:
+            beyond += 1
+            worst_vs_floor = max(worst_vs_floor, diff / floor)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
+                                               losses["plain"])]
+    # step 1 differs only by atomic order; Adam's normalised update can turn
+    # a near-zero gradient element's sign into a full lr step after it
+    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
+    line("geo_train_vs_plain", grad_tensors=len(grads["kernels"]),
+         max_diff_over_tol=f"{worst:.3f}",
+         tensors_beyond_1e3_of_max=beyond,
+         their_max_diff_over_nudge_diff=f"{worst_vs_floor:.3f}",
+         loss_kernels=",".join(f"{v:.7f}" for v in losses["kernels"]),
+         loss_plain=",".join(f"{v:.7f}" for v in losses["plain"]),
+         loss_rel_diff=",".join(f"{v:.2e}" for v in rel))
+    return counts, state, batch
+
+
+def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
+    """Phase 7: BC + PPO agent training on the frozen geo outputs. Returns
+    the launch counts of the training run (rollouts + updates)."""
+    import numpy as np
+    from cmr_agent_tpu_torch.env.buffer import TrajectoryBuffer
+    from cmr_agent_tpu_torch.train import train_agent, train_geo
+    geo_out = train_geo.make_geo_forward(cfg)(geo_model, batch)
+    state = train_agent.create_agent_state(cfg, dev, seed=1)
+    rollout = train_agent.make_rollout_fn(cfg)
+    update = train_agent.make_ppo_update_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pbs = cfg.ppo_batch_size
+
+    def minibatches(samples, order):
+        for s in range(0, len(order) - pbs + 1, pbs):
+            rows = torch.as_tensor(order[s:s + pbs], device=dev)
+            yield {k: v.index_select(0, rows) for k, v in samples.items()}
+
+    warm = TrajectoryBuffer(cfg.gamma, cfg.gae_lambda)       # warm-up
+    warm.add(rollout(state, geo_out, batch, gen)[0])
+    update(state, {k: v[:pbs] for k, v in warm.samples().items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    buf = TrajectoryBuffer(cfg.gamma, cfg.gae_lambda)
+    rollout_s, update_s, rewards = [], [], []
+    for _ in range(cfg.num_trajectory):
+        (traj, final, _), t = timed(
+            torch, lambda: rollout(state, geo_out, batch, gen))
+        assert torch.isfinite(final).all()
+        rollout_s.append(t)
+        rewards.append(traj["reward"].mean().item())
+        buf.add(traj)
+    samples = buf.samples()
+    order = np.random.default_rng(cfg.seed).permutation(
+        samples["state_2d"].shape[0])
+    for mb in minibatches(samples, order):
+        metrics, t = timed(torch, lambda: update(state, mb))
+        update_s.append(t)
+        assert all(torch.isfinite(v) for v in metrics.values()), metrics
+    counts = kernels.launch_counts()
+    line("agent_train_launches", rollouts=cfg.num_trajectory,
+         updates=len(update_s), **counts)
+    assert counts["segment_mean_count_image"] == \
+        cfg.action_num * cfg.num_trajectory, counts
+    assert counts["segment_mean_count_image_project"] == 0, counts
+    line("agent_train_time", batch=B, rows=len(order),
+         ppo_batch_size=pbs,
+         rollout_ms=",".join(f"{t * 1e3:.2f}" for t in rollout_s),
+         update_ms_median=f"{statistics.median(update_s) * 1e3:.3f}",
+         updates_total_s=f"{sum(update_s):.3f}",
+         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         mean_reward=",".join(f"{r:.4f}" for r in rewards),
+         last_bc_loss=f"{metrics['bc_loss'].item():.5f}",
+         last_ppo_loss=f"{metrics['ppo_loss'].item():.5f}")
+    profile_call(torch, lambda: rollout(state, geo_out, batch, gen),
+                 unprofiled_ms=statistics.median(rollout_s) * 1e3,
+                 phase="agent_rollout")
+
+    # an expert_beta=1.0 rollout and one update, each against its twin
+    # with the plain kernels, from the same agent weights
+    got = {}
+    for name in ("kernels", "plain"):
+        twin = train_agent.create_agent_state(cfg, dev, seed=2)
+        with (plain_kernels(kernels) if name == "plain"
+              else contextlib.nullcontext()):
+            traj, final, _ = rollout(
+                twin, geo_out, batch,
+                torch.Generator(device=dev).manual_seed(5), expert_beta=1.0)
+            buf = TrajectoryBuffer(cfg.gamma, cfg.gae_lambda)
+            buf.add(traj)
+            mb = next(minibatches(buf.samples(), order[order < B *
+                                                       cfg.action_num]))
+            got[name] = (traj, final, update(twin, mb))
+    (tk, fk, mk), (tp, fp, mp) = got["kernels"], got["plain"]
+    for key in ("action_r", "action_t", "reward"):
+        assert torch.equal(tk[key], tp[key]), key
+    torch.testing.assert_close(fk, fp, rtol=0, atol=1e-6)
+    # the observations' means are f32 sums in another order; the agent
+    # carries that difference to its outputs
+    torch.testing.assert_close(tk["state_2d"], tp["state_2d"], rtol=1e-5,
+                               atol=1e-5)
+    diffs = {k: (tk[k] - tp[k]).abs().max().item()
+             for k in ("value", "action_logprob", "entropy")}
+    assert max(diffs.values()) <= 1e-3, diffs
+    for k in train_agent.METRIC_KEYS:
+        a, b = mk[k].item(), mp[k].item()
+        assert abs(a - b) <= 1e-4 * abs(b) + 1e-5, (k, a, b)
+    line("agent_train_vs_plain", expert_beta=1.0,
+         state_2d_max_diff=(tk["state_2d"] - tp["state_2d"]).abs().max()
+         .item(), **{f"{k}_max_diff": v for k, v in diffs.items()},
+         update_loss_kernels=f"{mk['loss'].item():.7f}",
+         update_loss_plain=f"{mp['loss'].item():.7f}")
+    return counts
 
 
 def main() -> int:
@@ -378,11 +757,27 @@ def main() -> int:
     counts, _ = run_path(torch, kernels, serve, kitti_config, "float32")
     run_path(torch, kernels, serve, kitti_config, "bfloat16")
 
+    train_rows, _ = check_train_kernels(torch, kernels, dev)
+    rows.update(train_rows)
+    geo_counts, geo_state, train_batch = run_geo_train(
+        torch, kernels, serve, kitti_config(), dev)
+    agent_counts = run_agent_train(torch, kernels, kitti_config(),
+                                   geo_state.model, train_batch, dev)
+    # each kernel's launches on the path that runs it: the serving episode,
+    # one geo train step, or the agent training run
+    counts.update({k: geo_counts[k] for k in ("segment_sum",
+                                               "segment_softmax_attend_backward")})
+    counts["segment_mean_count_image"] = agent_counts["segment_mean_count_image"]
+
     sources = {
         "segment_softmax_attend": ("segment_softmax.cu", 126),
         "gather_rows": ("gather_rows.cu", 489),
         "knn": ("knn.cu", 395),
         "segment_mean_count_image_project": ("raster.cu", 1579),
+        "segment_sum": ("segment_sum.cu", 258),
+        "segment_softmax_attend_backward": ("segment_softmax_backward.cu",
+                                            145),
+        "segment_mean_count_image": ("raster_image.cu", 685),
     }
     summary = {"kernels": [
         {"name": name, "route": "cuda",

@@ -24,28 +24,14 @@
 // accumulator (10.8 MB) stays in L2. Design: block (32, 8) = 8 points x 32
 // channel lanes; each lane recomputes its point's projection (a few flops)
 // and adds a strided share of the F channels, so a warp's feature reads and
-// atomics touch consecutive addresses.
+// atomics touch consecutive addresses. The accumulate and finalise steps
+// are shared with raster_image.cu through common.cuh.
 
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
-
-template <typename T>
-struct AccumOf {
-  using type = float;
-};
-template <>
-struct AccumOf<int8_t> {
-  using type = int;
-};
-
-__device__ inline float to_accum(float v, float) { return v; }
-__device__ inline float to_accum(__nv_bfloat16 v, float) {
-  return __bfloat162float(v);
-}
-__device__ inline int to_accum(int8_t v, int) { return (int)v; }
 
 template <typename T>
 __global__ void raster_project_kernel(
@@ -77,31 +63,9 @@ __global__ void raster_project_kernel(
     return;
   }
   const int pix = (int)rintf(y) * w + (int)rintf(x);
-  Acc* dst = acc + ((size_t)b * h * w + pix) * (F + 1);
-  const T* src = feat + ((size_t)b * K + j) * F;
-  for (int c = threadIdx.x; c < F; c += blockDim.x) {
-    atomicAdd(&dst[c], to_accum(src[c], Acc(0)));
-  }
-  if (threadIdx.x == 0) atomicAdd(&dst[F], Acc(1));
-}
-
-template <typename Acc>
-__global__ void raster_finalise_kernel(const Acc* __restrict__ acc,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ means,
-                                       float* __restrict__ cnt_out, int HW,
-                                       int F, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int c = (int)(i % F);
-  const long long bp = i / F;  // b * HW + p
-  const int b = (int)(bp / HW);
-  const Acc* row = acc + bp * (F + 1);
-  const float cnt = (float)row[F];
-  float s = (float)row[c];
-  if (scale != nullptr) s = s * scale[(size_t)b * F + c];
-  means[i] = s / fmaxf(cnt, 1.f);
-  if (c == 0) cnt_out[bp] = cnt;
+  raster_accumulate_row(acc + ((size_t)b * h * w + pix) * (F + 1),
+                        feat + ((size_t)b * K + j) * F, F, threadIdx.x,
+                        blockDim.x);
 }
 
 template <typename T>
@@ -115,12 +79,8 @@ int launch(const float* pcT, const void* feat, const float* ab,
       pcT, static_cast<const T*>(feat), ab, counts, static_cast<Acc*>(acc), K,
       F, h, w);
   CMR_RETURN_IF_ERROR();
-  const int threads = 256;
-  const long long total = (long long)B * h * w * F;
-  raster_finalise_kernel<Acc><<<cmr_blocks(total, threads), threads, 0, st>>>(
-      static_cast<const Acc*>(acc), scale, means, cnt_out, h * w, F, total);
-  CMR_RETURN_IF_ERROR();
-  return 0;
+  return raster_finalise(static_cast<const Acc*>(acc), scale, means, cnt_out,
+                         B, h * w, F, st);
 }
 
 }  // namespace

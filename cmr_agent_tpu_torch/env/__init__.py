@@ -1,1 +1,1 @@
-"""Registration environment and the eval episode."""
+"""Registration environment, the episodes and the trajectory buffer."""

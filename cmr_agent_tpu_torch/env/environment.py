@@ -1,17 +1,24 @@
-"""Registration environment of the serving episode (PyTorch twin of the JAX
-package's ``env/environment.py``: ``init_poses``, the ranked top-K
-compaction, the projection-fused ("mega") observation raster in the nc
-layout, and ``apply_action``; reference environment/environment.py)."""
+"""Registration environment (PyTorch twin of the JAX package's
+``env/environment.py``; reference environment/environment.py):
+``init_poses``, the ranked top-K compaction, the observation in the nc
+layout with either raster (the projection-fused "mega" raster of eval
+episodes, or the pixel-id "flat" raster of training episodes),
+``apply_action``, and the training episode's ``expert_action`` and
+``step_reward``."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
 from ..ops import kernels
 from ..ops.geometry import (euler_angles_to_matrix_xyz, frustum_mask,
-                            project_points, transform_points_disentangled)
+                            matrix_to_euler_xyz_extrinsic, project_points,
+                            transform_points_disentangled)
+from ..ops.scatter import scatter_mean_image
 
 
 def init_poses(batch):
@@ -76,20 +83,47 @@ def mega_raster(feats, R, t, image_h: int, image_w: int, raster_dtype,
     return means.reshape(b, image_h, image_w, f)
 
 
+def flat_raster(feats, R, t, image_h: int, image_w: int, raster_dtype,
+                mean: torch.Tensor) -> torch.Tensor:
+    """Pixel-id raster of the compacted rows (the training episodes'
+    path, environment.py:450-467): move them about the full-cloud
+    centroid ``mean [B,3]``, project, round to a pixel, and route rows
+    outside the frame or past the valid prefix out through
+    :func:`..ops.scatter.scatter_mean_image`. Returns ``[B, h, w, F]``."""
+    mean = mean[:, None, :]
+    moved = (torch.einsum("bij,bnj->bni", R, feats["raster_pc"] - mean)
+             + mean + t[:, None, :])
+    proj = project_points(moved, feats["K"])
+    valid = frustum_mask(proj, w=image_w, h=image_h) & feats["raster_valid"]
+    xi = torch.round(proj[..., 0]).to(torch.int32)
+    yi = torch.round(proj[..., 1]).to(torch.int32)
+    return scatter_mean_image(feats["raster_feat"], yi * image_w + xi, valid,
+                              image_h, image_w, compute_dtype=raster_dtype)
+
+
 def observation_from_pose(feats, pose, image_h: int, image_w: int,
-                          raster_dtype: Optional[torch.dtype] = None):
-    """2-D and 3-D observations under the current pose estimate (nc layout,
-    mega raster branch; environment.py:443-449, 481-505).
+                          raster_dtype: Optional[torch.dtype] = None,
+                          raster_mode: str = "mega"):
+    """2-D and 3-D observations under the current pose estimate (nc layout;
+    environment.py:443-469, 481-505).
 
     ``feats`` must be compacted (:func:`compact_observation_state`).
-    Returns ``(observation_2d [B,H,W,2F], observation_3d [B,N,5])``.
+    ``raster_mode`` "mega" (the projection-fused kernel, eval episodes) or
+    "flat" (projection in PyTorch, then the pixel-id kernel; training
+    episodes, whose JAX raster has a VJP). Returns ``(observation_2d
+    [B,H,W,2F], observation_3d [B,N,5])``.
     """
     pc = feats["pc"]
     R, t = pose[:, :3, :3], pose[:, :3, 3]
     # disentangled transforms rotate about the FULL cloud centroid
     mean_full = pc.mean(dim=1)
-    proj_feat = mega_raster(feats, R, t, image_h, image_w, raster_dtype,
-                            mean_full)
+    if raster_mode == "mega":
+        raster = mega_raster
+    elif raster_mode == "flat":
+        raster = flat_raster
+    else:
+        raise ValueError(f"unknown raster_mode {raster_mode!r}")
+    proj_feat = raster(feats, R, t, image_h, image_w, raster_dtype, mean_full)
     moved = transform_points_disentangled(pc, R, t)
     in_cam = frustum_mask(project_points(moved, feats["K"]), w=image_w,
                           h=image_h)
@@ -111,3 +145,56 @@ def apply_action(action_r, action_t, pose_source, r_steps, t_steps):
     pose[:, :3, :3] = euler_angles_to_matrix_xyz(move_r) @ pose_source[:, :3, :3]
     pose[:, :3, 3] = pose_source[:, :3, 3] + move_t
     return pose
+
+
+def expert_action(pose_source, pose_target, r_steps, t_steps):
+    """Discrete 4-DoF expert action toward the target
+    (environment.py:608-650; reference environment.py:143-176).
+
+    The rotation delta is taken as extrinsic-xyz euler angles; where the
+    roll exceeds 3 rad (the R(pi) ambiguity) roll and pitch are zeroed and
+    the yaw reflected about +-pi, the reference's disambiguation. Each
+    component then takes the nearest step (first on a tie). Returns
+    ``(action_r [B,1] yaw, action_t [B,2] x/z)`` int64 indices.
+    """
+    delta_t = pose_target[:, :3, 3] - pose_source[:, :3, 3]
+    delta_R = pose_target[:, :3, :3] @ pose_source[:, :3, :3].transpose(1, 2)
+    delta_r = matrix_to_euler_xyz_extrinsic(delta_R)
+    flip = delta_r[:, 0] > 3.0
+    ry = delta_r[:, 1]
+    ry_flipped = torch.where(ry > 0, math.pi - ry,
+                             torch.where(ry < 0, -math.pi - ry, ry))
+    zero = torch.zeros_like(ry)
+    delta_r = torch.stack([torch.where(flip, zero, delta_r[:, 0]),
+                           torch.where(flip, ry_flipped, ry),
+                           torch.where(flip, zero, delta_r[:, 2])], dim=-1)
+    action_r = (delta_r[..., None] - r_steps).abs().argmin(dim=-1)
+    action_t = (delta_t[..., None] - t_steps).abs().argmin(dim=-1)
+    return action_r[:, 1:2], action_t[:, 0::2]
+
+
+def step_reward(pose, state, prev_distance=None, apply_pose: bool = True):
+    """Dense +-0.5 reward on the improvement of the masked mean squared
+    point distance to ``pc_in_cam_space`` (environment.py:672-701).
+
+    ``apply_pose=True`` moves the cloud by ``pose`` (disentangled) first;
+    ``False`` keeps the reference's committed behaviour, whose distance
+    never changes. Returns ``(reward [B,1,1], distance [B,1,1])``; the
+    reward is 0 without ``prev_distance``.
+    """
+    pc_target = state["pc_in_cam_space"]
+    mask = state["pc_mask"].to(pc_target.dtype)
+    pc = state["pc"]
+    if apply_pose:
+        diff = pc_target - transform_points_disentangled(
+            pc, pose[:, :3, :3], pose[:, :3, 3])
+    else:
+        diff = pc_target - (pc - pc.mean(dim=1, keepdim=True))
+    d = ((diff * diff).sum(dim=-1) * mask).sum(dim=1) \
+        / mask.sum(dim=1).clamp_min(1.0)
+    d = d[:, None, None]
+    if prev_distance is None:
+        return torch.zeros_like(d), d
+    better = (d < prev_distance).to(d.dtype) * 0.5
+    worse = (d > prev_distance).to(d.dtype) * 0.5
+    return better - worse, d

@@ -1,13 +1,17 @@
-"""CMRAgent: the actor-critic refinement policy, eval forward (PyTorch twin
-of the JAX package's ``models/agent.py:190-300``, channels-last layout;
-reference models/CMRAgent.py:17-144).
+"""CMRAgent: the actor-critic refinement policy (PyTorch twin of the JAX
+package's ``models/agent.py:190-321``, channels-last layout; reference
+models/CMRAgent.py:17-144), with the action sampling and the log-prob and
+entropy of the PPO update.
 
 ``state_2d`` is NHWC ``[B, H, W, 2F]``, ``state_3d`` is ``[B, N, 5]``.
+``train()`` mode normalises with batch statistics (see :mod:`.layers`), as
+the JAX agent's ``train=True`` does in the update; rollouts run it in
+``eval()`` mode.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -87,6 +91,40 @@ class CMRAgent(nn.Module):
         return r_logits, t_logits, value
 
 
-def action_from_logits(r_logits: torch.Tensor, t_logits: torch.Tensor):
-    """Deterministic (argmax) discrete actions (CMRAgent.py:117-127)."""
-    return r_logits.argmax(dim=-1), t_logits.argmax(dim=-1)
+def sample_categorical(logits: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of ``logits [..., S]`` from ``softmax(logits)``
+    by the Gumbel-max trick (as ``jax.random.categorical`` draws), with
+    uniforms from ``generator`` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min(torch.finfo(u.dtype).tiny)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def action_from_logits(r_logits: torch.Tensor, t_logits: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       deterministic: bool = True):
+    """Discrete actions (CMRAgent.py:117-127): the argmax, or with
+    ``deterministic=False`` one categorical draw each from ``generator``
+    (rotation first, then translation)."""
+    if deterministic:
+        return r_logits.argmax(dim=-1), t_logits.argmax(dim=-1)
+    if generator is None:
+        raise ValueError("sampling actions needs a generator")
+    return (sample_categorical(r_logits, generator),
+            sample_categorical(t_logits, generator))
+
+
+def action_logprob_and_entropy(r_logits, t_logits, action_r, action_t):
+    """Log-prob of the chosen actions and the entropy of each categorical
+    (agent.py:307-321; CMRAgent.py:129-144) -> ``(logprob [B, dr+dt],
+    entropy [B, dr+dt])``."""
+
+    def lp_ent(logits, action):
+        logp = torch.log_softmax(logits, dim=-1)
+        picked = torch.gather(logp, -1, action.long()[..., None])[..., 0]
+        return picked, -(logp.exp() * logp).sum(dim=-1)
+
+    lp_r, ent_r = lp_ent(r_logits, action_r)
+    lp_t, ent_t = lp_ent(t_logits, action_t)
+    return torch.cat([lp_r, lp_t], dim=-1), torch.cat([ent_r, ent_t], dim=-1)

@@ -11,7 +11,7 @@ from ..config import Config
 from ..ops.pe import position_encoding_sine_2d
 from ..ops.sampling import index_points
 from .image_encoder import ImageTransformer
-from .layers import ResDenseBlock, ResidualBlock2D, ViTCrossBlock
+from .layers import Dropout, ResDenseBlock, ResidualBlock2D, ViTCrossBlock
 from .linear_attention import LinearAttention
 from .point_encoder import PointTransformer
 
@@ -27,7 +27,8 @@ class IMGPCEncoder(nn.Module):
 
         def blocks():
             return nn.ModuleList(
-                ViTCrossBlock(cfg.embed_dim, cfg.num_head, cfg.mlp_dim, dt)
+                ViTCrossBlock(cfg.embed_dim, cfg.num_head, cfg.mlp_dim, dt,
+                              cfg.attention_dropout, cfg.mlp_dropout)
                 for _ in range(cfg.num_ca_layer_coarse))
         self.p2i_ca_layers = blocks()
         self.i2p_ca_layers = blocks()
@@ -80,6 +81,7 @@ class IMGPCEnDecoder(nn.Module):
         pe = position_encoding_sine_2d(f, cfg.image_h, cfg.image_w)
         self.register_buffer("pe", torch.from_numpy(pe).permute(2, 0, 1),
                              persistent=False)              # [F, H, W]
+        self.dropout = Dropout(0.1)     # hard-coded (JAX fusion.py:97,115)
 
     def forward(self, img, pc, node, pt2node):
         cfg = self.cfg
@@ -90,6 +92,7 @@ class IMGPCEnDecoder(nn.Module):
         node_fused = torch.cat([enc["node_feat"], proxy_at_node], dim=-1)
         for blk in self.node_fuse_convs:
             node_fused = blk(node_fused)
+        node_fused = self.dropout(node_fused)
 
         b = img.shape[0]
         hp, wp, p = cfg.h_proxy, cfg.w_proxy, cfg.patch_size
@@ -101,6 +104,7 @@ class IMGPCEnDecoder(nn.Module):
         img_fused = img_fused + self.pe.to(img_fused.dtype)[None]
         for blk in self.img_fuse_convs[1:]:
             img_fused = blk(img_fused)
+        img_fused = self.dropout(img_fused)
 
         pixels = img_fused.flatten(2).transpose(1, 2)       # [B, H*W, F]
         for p2n, n2p, ns, ps in zip(self.pixel_to_node_LA,

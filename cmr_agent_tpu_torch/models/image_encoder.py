@@ -9,7 +9,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops.pe import sinusoid_table_1d
-from .layers import Conv2d, ResidualBlock2D, ViTBlock
+from .layers import Conv2d, Dropout, ResidualBlock2D, ViTBlock
 
 
 class MiniResNet(nn.Module):
@@ -52,8 +52,10 @@ class ImageTransformer(nn.Module):
         dt = cfg.torch_dtype()
         self.dtype = dt
         self.embeddings = Embeddings(cfg, dt)
+        self.dropout = Dropout(cfg.embed_dropout)
         self.sa_encoder_layers = nn.ModuleList(
-            ViTBlock(cfg.embed_dim, cfg.num_head, cfg.mlp_dim, dt)
+            ViTBlock(cfg.embed_dim, cfg.num_head, cfg.mlp_dim, dt,
+                     cfg.attention_dropout, cfg.mlp_dropout)
             for _ in range(cfg.num_sa_layer))
         self.register_buffer("pe", torch.from_numpy(sinusoid_table_1d(
             cfg.num_img_proxy, cfg.embed_dim)), persistent=False)
@@ -63,7 +65,7 @@ class ImageTransformer(nn.Module):
         feat_q, feat_h, feat_f = self.embeddings.mini_resnet(x)
         tokens = self.embeddings.patch_embeddings(feat_q)     # [B, F, hp, wp]
         tokens = tokens.flatten(2).transpose(1, 2)            # [B, P, F]
-        tokens = tokens + self.pe.to(tokens.dtype)[None]
+        tokens = self.dropout(tokens + self.pe.to(tokens.dtype)[None])
         for blk in self.sa_encoder_layers:
             tokens = blk(tokens)
         return tokens, feat_q, feat_h, feat_f

@@ -1,4 +1,4 @@
-"""Shared building blocks (eval forward).
+"""Shared building blocks.
 
 PyTorch twins of the JAX package's ``models/layers.py`` (its unfused
 branches), named after the reference's torch module tree so the weight
@@ -8,7 +8,15 @@ bridge (:mod:`cmr_agent_tpu_torch.train.convert`) maps names one to one:
   (the reference's ``Conv1d(k=1)``);
 * 2-D blocks are ``Conv2d`` on NCHW inside the module; callers convert at
   their boundaries and public outputs stay NHWC as in the JAX package;
-* BatchNorm evaluates from running stats (eps 1e-5), in f32, and casts back.
+* BatchNorm follows flax, not ``torch.nn.BatchNorm``: in ``train()`` mode
+  it normalises with the biased batch variance and updates the running
+  stats as ``0.9 old + 0.1 batch`` (the running variance biased too); in
+  ``eval()`` mode it uses the running stats; in f32 (f64 inputs stay f64,
+  as flax promotes), cast back;
+* :class:`Dropout` scales kept values by ``1/(1-p)`` as flax does and
+  draws its masks from the generator :func:`set_dropout_generator` gives
+  it (a train step passes its own), so a step is reproducible from a
+  seed.
 
 Parameters stay f32. Every layer computes in its ``dtype`` (the config's
 compute dtype): inputs, weights and biases are cast to it, as flax does
@@ -71,12 +79,52 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype or x.dtype)
 
 
+def set_dropout_rate(module: nn.Module, p: float) -> None:
+    """Set the rate of every :class:`Dropout` under ``module`` (0 turns
+    dropout off in ``train()`` mode, as the parity comparisons need)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.p = p
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Every :class:`Dropout` under ``module`` draws its masks from
+    ``generator`` (on the activations' device; None: the device's default
+    generator)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in ``train()`` mode keep each element with
+    probability ``1 - p`` and scale it by ``1/(1-p)``; identity in
+    ``eval()`` mode or at ``p == 0``. Masks come from ``generator``."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over channel axis ``dim`` from running statistics.
+    """BatchNorm over channel axis ``dim`` with flax semantics.
 
     Holds the torch BatchNorm state names (``weight``, ``bias``,
     ``running_mean``, ``running_var``); computes in f32 and casts back to
-    the input dtype, like the JAX package's ``BatchNorm``.
+    the input dtype, like the JAX package's ``BatchNorm``. In ``train()``
+    mode the statistics are the batch's over every other axis, with the
+    variance ``E[x^2] - E[x]^2`` clipped at 0 (biased; flax's fast
+    variance), and the running stats move by momentum 0.9.
     """
 
     def __init__(self, features: int, dim: int = -1, eps: float = 1e-5):
@@ -91,9 +139,18 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1] * x.ndim
         shape[self.dim] = -1
-        s = (self.weight / torch.sqrt(self.running_var + self.eps))
-        y = (x.float() - self.running_mean.view(shape)) * s.view(shape) \
-            + self.bias.view(shape)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            axes = [d for d in range(x.ndim) if d != self.dim % x.ndim]
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        s = (self.weight / torch.sqrt(var + self.eps))
+        y = (xf - mean.view(shape)) * s.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 
@@ -167,15 +224,18 @@ class ResidualBlock2D(nn.Module):
 class ViTAttention(nn.Module):
     """Multi-head softmax attention of ``x`` over ``y`` with an output
     projection, written as explicit matmul + softmax (reference
-    ImageViT.py:61-108, IMGPCEncoder.py:14-55)."""
+    ImageViT.py:61-108, IMGPCEncoder.py:14-55); dropout on the attention
+    probabilities and on the output (JAX ``layers.py:337,341``)."""
 
-    def __init__(self, d: int, num_heads: int, dtype=None):
+    def __init__(self, d: int, num_heads: int, dtype=None,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.query = Linear(d, d, dtype=dtype)
         self.key = Linear(d, d, dtype=dtype)
         self.value = Linear(d, d, dtype=dtype)
         self.out = Linear(d, d, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         d = x.shape[-1]
@@ -187,32 +247,35 @@ class ViTAttention(nn.Module):
 
         q, k, v = split(self.query(x)), split(self.key(y)), split(self.value(y))
         scores = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-        probs = torch.softmax(scores, dim=-1)
+        probs = self.dropout(torch.softmax(scores, dim=-1))
         ctx = (probs @ v).transpose(1, 2).reshape(x.shape)
-        return self.out(ctx)
+        return self.dropout(self.out(ctx))
 
 
 class ViTMlp(nn.Module):
-    """Exact-GELU MLP (reference ImageViT.py:111-133)."""
+    """Exact-GELU MLP (reference ImageViT.py:111-133), dropout after the
+    GELU and after the output (JAX ``layers.py:359,363``)."""
 
-    def __init__(self, d: int, hidden: int, dtype=None):
+    def __init__(self, d: int, hidden: int, dtype=None, dropout: float = 0.0):
         super().__init__()
         self.fc1 = Linear(d, hidden, dtype=dtype)
         self.fc2 = Linear(hidden, d, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.dropout(self.fc2(self.dropout(F.gelu(self.fc1(x)))))
 
 
 class ViTBlock(nn.Module):
     """Pre-norm transformer block (self-attention)."""
 
-    def __init__(self, d: int, num_heads: int, mlp_dim: int, dtype=None):
+    def __init__(self, d: int, num_heads: int, mlp_dim: int, dtype=None,
+                 attention_dropout: float = 0.0, mlp_dropout: float = 0.0):
         super().__init__()
         self.attention_norm = LayerNorm(d, 1e-6, dtype)
         self.ffn_norm = LayerNorm(d, 1e-6, dtype)
-        self.attn = ViTAttention(d, num_heads, dtype)
-        self.ffn = ViTMlp(d, mlp_dim, dtype)
+        self.attn = ViTAttention(d, num_heads, dtype, attention_dropout)
+        self.ffn = ViTMlp(d, mlp_dim, dtype, mlp_dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.attention_norm(x)

@@ -115,7 +115,8 @@ class PointTransformer(nn.Module):
         self.dtype = dt
         self.embeddings = PointEmbeddings(cfg, dt)
         self.sa_encoder_layers = nn.ModuleList(
-            ViTBlock(cfg.embed_dim, cfg.num_head, cfg.mlp_dim, dt)
+            ViTBlock(cfg.embed_dim, cfg.num_head, cfg.mlp_dim, dt,
+                     cfg.attention_dropout, cfg.mlp_dropout)
             for _ in range(cfg.num_sa_layer))
 
     def forward(self, pc, node, pt2node):

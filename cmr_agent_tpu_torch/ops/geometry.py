@@ -1,14 +1,20 @@
-"""SE(3), euler-angle and camera-projection ops used by the serving episode.
+"""SE(3), euler-angle and camera-projection ops used by the episodes.
 
 PyTorch twins of the JAX package's ``ops/geometry.py`` (same names, same
 ``[..., N, 3]`` point layout, same conventions):
 
 * ``euler_angles_to_matrix_xyz`` is the torch-style
   ``euler_angles_to_matrix(e, 'XYZ')`` = ``Rx @ Ry @ Rz`` used by the
-  environment step (reference environment/environment.py:210-232).
+  environment step (reference environment/environment.py:210-232);
+* ``matrix_to_euler_xyz_extrinsic`` (the expert's delta) and
+  ``matrix_to_euler_intrinsic_xyz_degrees`` (``pose_diff``) are scipy's
+  ``as_euler('xyz')`` and ``as_euler('XYZ', degrees=True)`` in closed form,
+  with the gimbal-lock branches of the JAX package.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,6 +41,47 @@ def euler_angles_to_matrix_xyz(euler: torch.Tensor) -> torch.Tensor:
     ry = axis_angle_rotation("Y", euler[..., 1])
     rz = axis_angle_rotation("Z", euler[..., 2])
     return rx @ ry @ rz
+
+
+_GIMBAL_EPS = 1e-7
+
+
+def matrix_to_euler_xyz_extrinsic(R: torch.Tensor) -> torch.Tensor:
+    """``R = Rz Ry Rx`` ``(..., 3, 3)`` -> ``(ax, ay, az)`` radians
+    (geometry.py:77-101): ``ay = -asin(R20)``, ``ax = atan2(R21, R22)``,
+    ``az = atan2(R10, R00)``; at gimbal lock (``|cos ay| < 1e-7``)
+    ``ax = 0`` and ``az = atan2(-R01, R11)``, scipy's convention."""
+    ay = -torch.asin(R[..., 2, 0].clamp(-1.0, 1.0))
+    locked = torch.cos(ay).abs() < _GIMBAL_EPS
+    ax = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    az = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    ax = torch.where(locked, torch.zeros_like(ax), ax)
+    az = torch.where(locked, torch.atan2(-R[..., 0, 1], R[..., 1, 1]), az)
+    return torch.stack([ax, ay, az], dim=-1)
+
+
+def matrix_to_euler_intrinsic_xyz_degrees(R: torch.Tensor) -> torch.Tensor:
+    """``R = Rx Ry Rz`` -> intrinsic-XYZ angles in degrees
+    (geometry.py:104-123): ``ay = asin(R02)``, ``ax = atan2(-R12, R22)``,
+    ``az = atan2(-R01, R00)``; at gimbal lock ``az = 0`` and
+    ``ax = atan2(R21, R11)``."""
+    ay = torch.asin(R[..., 0, 2].clamp(-1.0, 1.0))
+    locked = torch.cos(ay).abs() < _GIMBAL_EPS
+    ax = torch.atan2(-R[..., 1, 2], R[..., 2, 2])
+    az = torch.atan2(-R[..., 0, 1], R[..., 0, 0])
+    ax = torch.where(locked, torch.atan2(R[..., 2, 1], R[..., 1, 1]), ax)
+    az = torch.where(locked, torch.zeros_like(az), az)
+    return torch.stack([ax, ay, az], dim=-1) * (180.0 / math.pi)
+
+
+def pose_diff(P_pred: torch.Tensor, P_gt: torch.Tensor):
+    """``(RTE, RRE)``: the L2 translation error and the sum of
+    ``|intrinsic-XYZ angles|`` (degrees) of ``R_pred R_gt^T``
+    (geometry.py:230-241; reference Test_Agent.py:99-105)."""
+    r_rel = P_pred[..., :3, :3] @ P_gt[..., :3, :3].transpose(-1, -2)
+    rre = matrix_to_euler_intrinsic_xyz_degrees(r_rel).abs().sum(dim=-1)
+    rte = torch.linalg.norm(P_pred[..., :3, 3] - P_gt[..., :3, 3], dim=-1)
+    return rte, rre
 
 
 def transform_points_disentangled(pc: torch.Tensor, R: torch.Tensor,

@@ -1,5 +1,5 @@
-"""The serving path's hand-written CUDA kernels, their plain PyTorch
-versions, and launch counts.
+"""The port's hand-written CUDA kernels, their plain PyTorch versions,
+launch counts, and the autograd Functions built on them.
 
 Each public wrapper takes the plain version for tensors on the CPU and
 launches its kernel (``csrc/*.cu``, built and loaded by :mod:`.build` at
@@ -18,7 +18,18 @@ wrapper                                   replaces (cmr_agent_tpu/ops/
 :func:`gather_rows`                       ``gather_rows_fused``
 :func:`knn`                               ``knn_fused``
 :func:`segment_mean_count_image_project`  ``segment_mean_count_image_project_fused``
+:func:`segment_sum`                       ``segment_sum_fused``
+:func:`segment_softmax_attend_backward`   ``_bwd`` (VJP of
+                                          ``segment_softmax_attend_fused``)
+:func:`segment_mean_count_image`          ``segment_sum_image_fused`` (flat)
 ========================================  ==================================
+
+Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn` and
+:class:`SegmentMeanCountImageFn` are ``torch.autograd.Function``s whose
+forward and backward both go through the wrappers above (kernel or plain
+version by device), as the JAX package's ``custom_vjp`` rules do. They look
+the wrappers up at call time, so swapping a wrapper for its plain version
+(``PLAIN``) swaps it in both directions.
 """
 
 from __future__ import annotations
@@ -38,6 +49,10 @@ _SIGNATURES = {
     "cmr_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_raster_project": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
+    "cmr_segment_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _P],
+    "cmr_raster_image": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_error_string": [_I],
 }
 _lib: Optional[ctypes.CDLL] = None
@@ -101,32 +116,39 @@ def _stream() -> ctypes.c_void_p:
 # --------------------------------------------------------------------------
 
 def segment_softmax_attend_plain(attn: torch.Tensor, values: torch.Tensor,
-                                 idx: torch.Tensor,
-                                 num_segments: int) -> torch.Tensor:
+                                 idx: torch.Tensor, num_segments: int,
+                                 return_stats: bool = False):
     """Per-channel softmax of ``attn [B,N,F]`` within each segment
     ``idx [B,N]``, then the softmax-weighted sum of ``values`` per segment
     -> ``[B,M,F]`` f32. Stabilised by the global per-(b, channel) max
     (exact: the shift is constant within every segment). Empty segments
-    give 0; idx outside [0, M) contributes nothing."""
+    give 0; idx outside [0, M) contributes nothing.
+
+    ``return_stats=True`` returns ``(out, sums [B,M,F], gmax [B,F])``, the
+    residuals of :func:`segment_softmax_attend_backward`."""
     b, n, f = attn.shape
     m = num_segments
-    e = torch.exp(attn - attn.amax(dim=1, keepdim=True))
+    gmax = attn.amax(dim=1)
+    e = torch.exp(attn - gmax[:, None, :])
     valid = (idx >= 0) & (idx < m)
     e = torch.where(valid[..., None], e, torch.zeros_like(e))
     seg = torch.where(valid, idx, torch.zeros_like(idx)).long()
     seg = seg[..., None].expand(b, n, f)
     sums = attn.new_zeros((b, m, f)).scatter_add_(1, seg, e)
     out = attn.new_zeros((b, m, f)).scatter_add_(1, seg, e * values)
-    return out / sums.clamp_min(1e-30)
+    out = out / sums.clamp_min(1e-30)
+    return (out, sums, gmax) if return_stats else out
 
 
 def segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
-                           idx: torch.Tensor,
-                           num_segments: int) -> torch.Tensor:
+                           idx: torch.Tensor, num_segments: int,
+                           return_stats: bool = False):
     """Kernel wrapper of :func:`segment_softmax_attend_plain`: f32
-    ``attn``/``values`` ``[B,N,F]``, int32 ``idx [B,N]``."""
+    ``attn``/``values`` ``[B,N,F]``, int32 ``idx [B,N]``. The kernel fills
+    ``sums`` and ``gmax`` on its way, so ``return_stats`` costs nothing."""
     if not _on_cuda(attn, values, idx):
-        return segment_softmax_attend_plain(attn, values, idx, num_segments)
+        return segment_softmax_attend_plain(attn, values, idx, num_segments,
+                                            return_stats)
     b, n, f = attn.shape
     m = int(num_segments)
     _require("attn", attn, (torch.float32,), (b, n, f))
@@ -140,7 +162,7 @@ def segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
     _launch("cmr_segment_softmax_attend", _ptr(attn), _ptr(values), _ptr(idx),
             _ptr(gmax), _ptr(sums), _ptr(out), b, n, m, f, _stream())
     segment_softmax_attend.launches += 1
-    return out
+    return (out, sums, gmax) if return_stats else out
 
 
 segment_softmax_attend.launches = 0
@@ -287,18 +309,25 @@ def segment_mean_count_image_project_plain(
     never rastered). ``compute_dtype`` None/f32, bf16 (features rounded to
     bf16, f32 sums) or int8 (quantised, exact integer sums).
     """
-    b, _, k = pcT.shape
-    f = feat.shape[-1]
     q, scale = _operands(feat, compute_dtype)
     pix = _project_pixels(pcT, ab, counts, h, w)
+    return _raster_mean_count(q, scale, pix, h * w)
+
+
+def _raster_mean_count(q: torch.Tensor, scale: Optional[torch.Tensor],
+                       pix: torch.Tensor, hw: int):
+    """Shared tail of the plain rasters: ``q [B,K,F]`` (f32/bf16 summed in
+    f32, int8 in exact int32 then scaled by ``scale [B,F]``) summed with a
+    ones column into pixel ``pix [B,K]`` (``hw`` = dropped) -> ``(means
+    [B,hw,F], counts [B,hw])``."""
+    b, k, f = q.shape
     acc_dtype = torch.int32 if scale is not None else torch.float32
     data = torch.cat([q.to(acc_dtype),
                       torch.ones((b, k, 1), dtype=acc_dtype,
-                                 device=feat.device)], dim=-1)
-    acc = torch.zeros((b, h * w + 1, f + 1), dtype=acc_dtype,
-                      device=feat.device)
-    acc.scatter_add_(1, pix[..., None].expand(b, k, f + 1), data)
-    acc = acc[:, :h * w]
+                                 device=q.device)], dim=-1)
+    acc = torch.zeros((b, hw + 1, f + 1), dtype=acc_dtype, device=q.device)
+    acc.scatter_add_(1, pix.long()[..., None].expand(b, k, f + 1), data)
+    acc = acc[:, :hw]
     sums, cnt = acc[..., :f].float(), acc[..., f].float()
     if scale is not None:
         sums = sums * scale[:, None, :]
@@ -336,13 +365,224 @@ def segment_mean_count_image_project(
 
 segment_mean_count_image_project.launches = 0
 
+# --------------------------------------------------------------------------
+# 5. segment sum (the row gather's backward)
+# --------------------------------------------------------------------------
+
+def segment_sum_plain(data: torch.Tensor, idx: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """``data [B,N,F] x idx [B,N] -> [B,M,F]`` sums per segment; rows with
+    idx outside [0, M) contribute nothing."""
+    b, n, f = data.shape
+    m = num_segments
+    valid = (idx >= 0) & (idx < m)
+    seg = torch.where(valid, idx, torch.full_like(idx, m)).long()
+    out = data.new_zeros((b, m + 1, f))
+    out.scatter_add_(1, seg[..., None].expand(b, n, f), data)
+    return out[:, :m]
+
+
+def segment_sum(data: torch.Tensor, idx: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Kernel wrapper of :func:`segment_sum_plain`: f32 ``data``, int32
+    ``idx``."""
+    if not _on_cuda(data, idx):
+        return segment_sum_plain(data, idx, num_segments)
+    b, n, f = data.shape
+    m = int(num_segments)
+    _require("data", data, (torch.float32,), (b, n, f))
+    _require("idx", idx, (torch.int32,), (b, n))
+    if m < 1:
+        raise ValueError(f"num_segments must be positive, got {m}")
+    out = torch.zeros((b, m, f), device=data.device)
+    _launch("cmr_segment_sum", _ptr(data), _ptr(idx), _ptr(out), b, n, m, f,
+            _stream())
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0
+
+
+# --------------------------------------------------------------------------
+# 6. segmented softmax-attend, backward
+# --------------------------------------------------------------------------
+
+def segment_softmax_attend_backward_plain(
+        attn: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+        out: torch.Tensor, sums: torch.Tensor, gmax: torch.Tensor,
+        grad: torch.Tensor, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form VJP of :func:`segment_softmax_attend_plain` from its
+    residuals (``out``, ``sums``, ``gmax``) and the output gradient
+    ``grad [B,M,F]`` -> ``(dattn, dvalues)`` ``[B,N,F]``: with ``w =
+    exp(attn - gmax) / max(sums[seg], 1e-30)``, ``dvalues = w g[seg]`` and
+    ``dattn = w g[seg] (values - out[seg])``; 0 for routed-out rows."""
+    valid = ((idx >= 0) & (idx < num_segments))[..., None]
+
+    def at(table):
+        return gather_rows_plain(table, idx)
+
+    w = torch.exp(attn - gmax[:, None, :]) / at(sums).clamp_min(1e-30)
+    gw = torch.where(valid, w, torch.zeros_like(w)) * at(grad)
+    return gw * (values - at(out)), gw
+
+
+def segment_softmax_attend_backward(
+        attn: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+        out: torch.Tensor, sums: torch.Tensor, gmax: torch.Tensor,
+        grad: torch.Tensor, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of :func:`segment_softmax_attend_backward_plain`: all
+    f32, int32 ``idx``; the gather of the three ``[B,M,F]`` tables is fused
+    into the kernel."""
+    if not _on_cuda(attn, values, idx, out, sums, gmax, grad):
+        return segment_softmax_attend_backward_plain(
+            attn, values, idx, out, sums, gmax, grad, num_segments)
+    b, n, f = attn.shape
+    m = int(num_segments)
+    for name, t, shape in (("attn", attn, (b, n, f)),
+                           ("values", values, (b, n, f)),
+                           ("out", out, (b, m, f)), ("sums", sums, (b, m, f)),
+                           ("gmax", gmax, (b, f)), ("grad", grad, (b, m, f))):
+        _require(name, t, (torch.float32,), shape)
+    _require("idx", idx, (torch.int32,), (b, n))
+    dattn = torch.empty_like(attn)
+    dvalues = torch.empty_like(values)
+    _launch("cmr_segment_softmax_backward", _ptr(attn), _ptr(values),
+            _ptr(idx), _ptr(out), _ptr(sums), _ptr(gmax), _ptr(grad),
+            _ptr(dattn), _ptr(dvalues), b, n, m, f, _stream())
+    segment_softmax_attend_backward.launches += 1
+    return dattn, dvalues
+
+
+segment_softmax_attend_backward.launches = 0
+
+
+# --------------------------------------------------------------------------
+# 7. pixel-id observation raster (mean + count per pixel)
+# --------------------------------------------------------------------------
+
+def _image_operand(data: torch.Tensor, compute_dtype) -> torch.Tensor:
+    if compute_dtype == torch.int8:
+        raise ValueError("the pixel-id raster has no int8 mode (training "
+                         "episodes raster in f32 or bf16)")
+    return _operands(data, compute_dtype)[0]
+
+
+def segment_mean_count_image_plain(
+        data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
+        compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-id raster -> ``(means [B,h*w,F], counts [B,h*w])`` f32.
+
+    ``data [B,K,F]``; ``ids [B,K]`` pixel ``y*w + x`` per row, any id
+    outside ``[0, h*w)`` routed out. ``compute_dtype`` None/f32 or bf16
+    (rows rounded to bf16 once, f32 sums)."""
+    hw = h * w
+    pix = torch.where((ids >= 0) & (ids < hw), ids, torch.full_like(ids, hw))
+    return _raster_mean_count(_image_operand(data, compute_dtype), None, pix,
+                              hw)
+
+
+def segment_mean_count_image(
+        data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
+        compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of :func:`segment_mean_count_image_plain`: f32 or
+    bf16 ``data``, int32 ``ids``."""
+    if not _on_cuda(data, ids):
+        return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
+    b, k, f = data.shape
+    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
+    _require("ids", ids, (torch.int32,), (b, k))
+    q = _image_operand(data, compute_dtype).contiguous()
+    kind = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
+    acc = torch.zeros((b, h * w, f + 1), device=data.device)
+    means = torch.empty((b, h * w, f), device=data.device)
+    cnt = torch.empty((b, h * w), device=data.device)
+    _launch("cmr_raster_image", _ptr(q), kind, _ptr(ids), _ptr(acc),
+            _ptr(means), _ptr(cnt), b, k, f, h * w, _stream())
+    segment_mean_count_image.launches += 1
+    return means, cnt
+
+
+segment_mean_count_image.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd Functions (the JAX package's custom_vjp rules)
+# --------------------------------------------------------------------------
+
+class SegmentSoftmaxAttendFn(torch.autograd.Function):
+    """:func:`segment_softmax_attend` with the closed-form backward of
+    pallas_kernels.py:_bwd; ``idx`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, attn, values, idx, num_segments: int):
+        out, sums, gmax = segment_softmax_attend(attn, values, idx,
+                                                 num_segments,
+                                                 return_stats=True)
+        ctx.save_for_backward(attn, values, idx, out, sums, gmax)
+        ctx.num_segments = num_segments
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        attn, values, idx, out, sums, gmax = ctx.saved_tensors
+        dattn, dvalues = segment_softmax_attend_backward(
+            attn, values, idx, out, sums, gmax, grad.contiguous(),
+            ctx.num_segments)
+        return dattn, dvalues, None, None
+
+
+class GatherRowsFn(torch.autograd.Function):
+    """:func:`gather_rows`; its backward is :func:`segment_sum` of the
+    gradient widened to f32, cast back to the table's dtype
+    (pallas_kernels.py:505-509)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows, ctx.dtype = table.shape[1], table.dtype
+        return gather_rows(table, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        d_table = segment_sum(grad.float().contiguous(), idx, ctx.num_rows)
+        return d_table.to(ctx.dtype), None
+
+
+class SegmentMeanCountImageFn(torch.autograd.Function):
+    """:func:`segment_mean_count_image`; counts carry no gradient, and the
+    means' gradient reaches the rows through :func:`gather_rows` of the
+    sums' gradient (pallas_kernels.py:923-932)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, h: int, w: int, compute_dtype=None):
+        means, cnt = segment_mean_count_image(data, ids, h, w, compute_dtype)
+        ctx.save_for_backward(ids, cnt)
+        ctx.dtype = data.dtype
+        ctx.mark_non_differentiable(cnt)
+        return means, cnt
+
+    @staticmethod
+    def backward(ctx, grad_means, _grad_counts):
+        ids, cnt = ctx.saved_tensors
+        g_sums = (grad_means / cnt.clamp_min(1.0)[..., None]).contiguous()
+        return gather_rows(g_sums, ids).to(ctx.dtype), None, None, None, None
+
+
 WRAPPERS = (segment_softmax_attend, gather_rows, knn,
-            segment_mean_count_image_project)
+            segment_mean_count_image_project, segment_sum,
+            segment_softmax_attend_backward, segment_mean_count_image)
 PLAIN = {
     "segment_softmax_attend": segment_softmax_attend_plain,
     "gather_rows": gather_rows_plain,
     "knn": knn_plain,
     "segment_mean_count_image_project": segment_mean_count_image_project_plain,
+    "segment_sum": segment_sum_plain,
+    "segment_softmax_attend_backward": segment_softmax_attend_backward_plain,
+    "segment_mean_count_image": segment_mean_count_image_plain,
 }
 
 

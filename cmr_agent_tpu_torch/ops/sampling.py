@@ -1,8 +1,11 @@
-"""Point sampling / grouping ops of the serving path.
+"""Point sampling / grouping ops.
 
 PyTorch twins of the JAX package's ``ops/sampling.py``. ``index_points``
 and ``knn_indices`` keep the JAX package's routing gates, so the same
 calls reach the kernels (and the launch counts match the JAX path's).
+``index_points`` is differentiable: above the gate through
+:class:`~.kernels.GatherRowsFn` (backward: the segment-sum kernel), below
+it through ``torch.gather``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, m = points.shape[0], points.shape[1]
     flat = idx.reshape(b, -1)
     if points.ndim == 3 and m <= 2048 and flat.shape[1] * m >= (1 << 20):
-        out = kernels.gather_rows(points, flat.clamp(0, m - 1))
+        out = kernels.GatherRowsFn.apply(points, flat.clamp(0, m - 1))
     else:
         gidx = flat.long()[..., None].expand(b, flat.shape[1],
                                              points.shape[-1])

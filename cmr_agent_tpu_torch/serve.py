@@ -23,6 +23,11 @@ from .models.multi_head import MultiHeadModel
 from .ops.geometry import to_disentangled
 
 BATCH_KEYS = ("img", "pc", "node", "pt2node", "K", "P")
+# what the train steps read besides: the geo heads' labels and the agent's
+# reward target
+TRAIN_KEYS = BATCH_KEYS + ("pc_mask", "img_mask", "pc_idx_for_circle_loss",
+                           "pc_xy_float_for_circle_loss",
+                           "pc_xy_int_for_circle_loss", "pc_in_cam_space")
 
 
 def resolve_device(device) -> torch.device:
@@ -69,10 +74,20 @@ def serve_episode(model: MultiHeadModel, agent: CMRAgent, cfg: Config,
             "img_geo_feat": out["img_geo_feat"],
         }
         pose_src, pose_tgt = init_poses(batch)
-        final, steps = run_episode(agent, state, pose_src, cfg,
-                                   raster_topk=cfg.episode_raster_topk())
+        final, steps, _ = run_episode(agent, state, pose_src, cfg,
+                                      raster_topk=cfg.episode_raster_topk())
         return {"final_pose": final, "steps": steps,
                 "pose_target": to_disentangled(pose_tgt, state["pc"])}
+
+
+def synthetic_batch(cfg: Config, batch_size: int, device="cuda",
+                    seed: int = 0, keys=BATCH_KEYS) -> Dict[str, torch.Tensor]:
+    """``keys`` of a batch of the synthetic dataset (seeded with ``seed``)
+    as tensors on ``device``."""
+    dev = resolve_device(device)
+    ds = SyntheticDataset(cfg, length=batch_size, seed=seed)
+    batch_np = collate([ds[i] for i in range(batch_size)])
+    return {k: torch.from_numpy(batch_np[k]).to(dev) for k in keys}
 
 
 def build_workload(cfg: Config, batch_size: int, device="cuda", seed: int = 0
@@ -86,9 +101,7 @@ def build_workload(cfg: Config, batch_size: int, device="cuda", seed: int = 0
     ``episode(batch)`` returns the final poses ``[B, 4, 4]``.
     """
     dev = resolve_device(device)
-    ds = SyntheticDataset(cfg, length=batch_size, seed=seed)
-    batch_np = collate([ds[i] for i in range(batch_size)])
-    batch = {k: torch.from_numpy(batch_np[k]).to(dev) for k in BATCH_KEYS}
+    batch = synthetic_batch(cfg, batch_size, dev, seed)
     gen = torch.Generator().manual_seed(seed)
     model, agent = MultiHeadModel(cfg), CMRAgent(cfg)
     init_random_(model, gen)

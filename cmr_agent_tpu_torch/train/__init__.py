@@ -1,1 +1,1 @@
-"""Weight bridge from the JAX package."""
+"""Weight bridge from the JAX package, optimizer and training steps."""

@@ -157,7 +157,8 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_no_launch():
                                                       .copy()), 4)
     assert kernels.launch_counts() == {
         "segment_softmax_attend": 0, "gather_rows": 0, "knn": 0,
-        "segment_mean_count_image_project": 0}
+        "segment_mean_count_image_project": 0, "segment_sum": 0,
+        "segment_softmax_attend_backward": 0, "segment_mean_count_image": 0}
     meta = torch.zeros(2, 3, device="meta")
     with pytest.raises(ValueError):
         kernels.gather_rows(meta[None], torch.zeros(1, 2, dtype=torch.int32))
