@@ -1,13 +1,14 @@
 """Frozen configuration dataclasses (the port's own copy).
 
 The JAX package's ``Config`` fields and defaults, less the settings the
-port does not serve yet: it serves the 4-DoF agent, the reference 5-channel
-observation of the full cloud and the ``"megatopk"`` raster (ranked top-K
-compaction once per episode, then the projection-fused raster kernel every
-step). So ``is_6_dof``, ``raster_mode``, ``obs3d_source``,
-``pose_aware_observation``, ``obs_bearing_channels``, ``policy_aux_state``
-and ``bearing_init`` are not fields here, and passing one raises
-``TypeError`` instead of serving something else. Other differences:
+port does not serve yet: it serves the 4-DoF agent over the full cloud
+(with the flagship's pose-aware, bearing and aux-state observation
+options) and the eval rasters that end in the projection-fused kernel
+(``raster_mode`` ``"megatopk"``, ``"pack"``, ``"mega"``). So ``is_6_dof``,
+``obs3d_source`` and ``cost_volume_remat`` are not fields here and passing
+one raises ``TypeError``; a ``raster_mode`` the port has no path for
+(``"topk"``, ``"flat"``, ``"compact"``) raises ``ValueError``, instead of
+serving something else. Other differences:
 ``torch_dtype()`` replaces ``jnp_dtype()``, and there is no ``use_pallas``
 switch — on the card the hand-written kernels always run, on the CPU their
 plain PyTorch versions do (the tensor's device decides, see
@@ -26,6 +27,7 @@ import torch
 # Discrete agent action tables (reference: config/KittiConfig.py:105-106).
 _R_STEPS_DEG = (-62.5, -12.5, -2.5, -0.5, -0.1, 0.0, 0.1, 0.5, 2.5, 12.5, 62.5)
 _T_STEPS = (-8.1, -2.7, -0.9, -0.3, -0.1, 0.0, 0.1, 0.3, 0.9, 2.7, 8.1)
+RASTER_MODES = ("megatopk", "pack", "mega")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,21 +111,64 @@ class Config:
     ppo_batch_size: int = 10
 
     # <----------- cost-volume (IterModel) ---------->
+    # hypotheses per axis of the (yaw, x, z) grid: nlabel^3 poses
     nlabel: int = 9
+    # Warp every point instead of the predicted-overlap subset (with its
+    # standby fallback); the per-hypothesis frustum test still filters
+    # geometrically. Removes the cost volume's dependence on the overlap
+    # head where that head is blind (+-pi yaw on held-out scenes).
     cost_volume_unmasked: bool = False
-    cost_volume_remat: bool = False
+    # Eval scores the pose grid in chunks of this many hypotheses (warp ->
+    # stack -> tower per chunk, logits concatenated), exact because eval
+    # BatchNorm reads running stats: the [B, P, H, W, 2F+2] volume never
+    # exists for all P at once. 0 disables; ignored when it does not
+    # divide nlabel^3.
     cost_volume_eval_chunk: int = 243
 
     # <----------- serving knobs ---------->
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    # Eval episode's one-off compaction before the projection-fused raster:
+    #   "megatopk" (default): ranked top-K by in-camera score, lowest
+    #     scores dropped beyond raster_topk;
+    #   "pack" / "mega": the streaming mask-pack kernel (first-index-first,
+    #     highest indices dropped beyond raster_topk). In this package
+    #     "mega" is an alias of "pack": both run the same code, pack then
+    #     the projection-fused raster kernel. (The JAX package gives "pack"
+    #     another per-step raster; the name is kept so that its configs
+    #     load.)
+    # Training episodes always take the ranked top-K and the pixel-id
+    # raster (the pack kernel has no gradient).
+    raster_mode: str = "megatopk"
     raster_topk: int = 20480
     # int8 observation raster: applies to bf16 episodes only (as in the
     # JAX package's episode gating); a no-op in f32 episodes.
     raster_int8: bool = True
+    # Feed the agent's point branch the cloud moved by the current pose
+    # estimate instead of the static cloud (same 5 channels).
+    pose_aware_observation: bool = False
+    # Append the unit (x, z) bearing of the predicted-overlap sector's
+    # centroid under the current estimate as two constant per-point
+    # channels (7 channels in all).
+    obs_bearing_channels: bool = False
+    # Feed that bearing straight into the state the policy and value heads
+    # read (needs obs_bearing_channels; widens the heads' input by 2).
+    policy_aux_state: bool = False
+    # Start every episode (rollout and eval) from the yaw that turns the
+    # predicted-overlap sector's centroid onto the camera's +z axis,
+    # instead of the identity.
+    bearing_init: bool = False
+
+    def __post_init__(self):
+        if self.raster_mode not in RASTER_MODES:
+            raise ValueError(
+                f"raster_mode {self.raster_mode!r} is not served by the "
+                f"port; choose one of {RASTER_MODES}")
 
     @property
     def obs3d_channels(self) -> int:
-        return 5
+        """3-D observation channels: xyz + overlap + in_cam (+2 bearing
+        channels with ``obs_bearing_channels``)."""
+        return 5 + (2 if self.obs_bearing_channels else 0)
 
     # <----------- derived geometry ---------->
     @property

@@ -46,10 +46,13 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     ``raster_topk`` rows (``None``: all ``num_pt`` rows, which rasters the
     same pixels as the JAX package's uncompacted path).
 
-    Eval episodes (the defaults) raster with the projection-fused kernel.
-    Training episodes (``collect_trajectory``) keep the JAX package's
-    rules for them: the flat pixel-id raster, in bf16 or f32 but never
-    int8. ``deterministic=False`` samples actions from ``generator``;
+    Eval episodes (the defaults) raster with the projection-fused kernel,
+    after the ranked top-K compaction (``cfg.raster_mode`` "megatopk") or
+    the mask-pack kernel's ("pack", "mega"). Training episodes
+    (``collect_trajectory``) keep the JAX package's rules for them: the
+    ranked top-K, the flat pixel-id raster, in bf16 or f32 but never
+    int8. ``cfg.pose_aware_observation`` and ``cfg.obs_bearing_channels``
+    shape the 3-D observation of both. ``deterministic=False`` samples actions from ``generator``;
     ``with_expert`` labels each step with :func:`expert_action` toward
     ``pose_target``; ``expert_beta`` (DAgger scheduled sampling, needs
     ``with_expert``) takes the expert's action instead with that
@@ -58,7 +61,7 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
 
     Returns ``(final_pose [B,4,4], [(r_logits, t_logits)] per step,
     trajectory or None)``; the trajectory's tensors are stacked over the
-    step axis: ``state_2d [K,B,H,W,2F]``, ``state_3d [K,B,N,5]``,
+    step axis: ``state_2d [K,B,H,W,2F]``, ``state_3d [K,B,N,5 (+2)]``,
     ``value`` and ``reward [K,B,1,1]``, ``expert_action_r/t`` (with the
     expert), ``action_r [K,B,1]``, ``action_t [K,B,2]``,
     ``action_logprob`` and ``entropy [K,B,3]``.
@@ -69,7 +72,9 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     if expert_beta is not None and not with_expert:
         raise ValueError("expert_beta needs with_expert=True")
     k = raster_topk if raster_topk is not None else state["pc"].shape[1]
-    state = compact_observation_state(state, k)
+    packed = cfg.raster_mode in ("pack", "mega") and not collect_trajectory
+    state = compact_observation_state(state, k,
+                                      mode="pack" if packed else "topk")
     raster_dtype = raster_dtype_for(cfg, training=collect_trajectory)
     raster_mode = "flat" if collect_trajectory else "mega"
     pose = pose_init
@@ -81,7 +86,9 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
             exp_r, exp_t = expert_action(pose, pose_target, r_steps, t_steps)
         obs2d, obs3d = observation_from_pose(state, pose, cfg.image_h,
                                              cfg.image_w, raster_dtype,
-                                             raster_mode)
+                                             raster_mode,
+                                             cfg.pose_aware_observation,
+                                             cfg.obs_bearing_channels)
         r_logits, t_logits, value = agent(obs2d, obs3d)
         action_r, action_t = action_from_logits(
             r_logits, t_logits, generator, deterministic)

@@ -3,7 +3,8 @@ package's ``models/agent.py:190-321``, channels-last layout; reference
 models/CMRAgent.py:17-144), with the action sampling and the log-prob and
 entropy of the PPO update.
 
-``state_2d`` is NHWC ``[B, H, W, 2F]``, ``state_3d`` is ``[B, N, 5]``.
+``state_2d`` is NHWC ``[B, H, W, 2F]``, ``state_3d`` is ``[B, N, 5]``, or
+``[B, N, 7]`` with ``cfg.obs_bearing_channels``.
 ``train()`` mode normalises with batch statistics (see :mod:`.layers`), as
 the JAX agent's ``train=True`` does in the update; rollouts run it in
 ``eval()`` mode.
@@ -17,14 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from .layers import BatchNorm, Conv2d, Linear, ResDenseBlock
-
-
-class _GlobalMean(nn.Module):
-    """Mean over H, W keeping dims (the reference's AvgPool(H/8, W/8))."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(dim=(2, 3), keepdim=True)
+from .layers import BatchNorm, Conv2d, GlobalMean, Linear, ResDenseBlock
 
 
 def _state_2d_embed(c: int, dtype) -> nn.Sequential:
@@ -36,7 +30,7 @@ def _state_2d_embed(c: int, dtype) -> nn.Sequential:
         layers += [Conv2d(c, c, 3, 1, 1, dtype), BatchNorm(c, dim=1), lrelu(),
                    Conv2d(c, c, 3, 1, 1, dtype), lrelu(), nn.AvgPool2d(2)]
     layers += [Conv2d(c, c, 3, 1, 1, dtype), BatchNorm(c, dim=1), lrelu(),
-               Conv2d(c, c, 3, 1, 1, dtype), lrelu(), _GlobalMean(),
+               Conv2d(c, c, 3, 1, 1, dtype), lrelu(), GlobalMean(),
                Conv2d(c, c, 1, dtype=dtype), lrelu(),
                Conv2d(c, c, 1, dtype=dtype)]
     return nn.Sequential(*layers)
@@ -66,9 +60,14 @@ class CMRAgent(nn.Module):
             ResDenseBlock(2 * f, 2 * f, dt),
         ])
         self.state_2d_embed = _state_2d_embed(2 * f, dt)
-        self.policy_r = _mlp_head(4 * f, 4 * f, cfg.degree_r * cfg.num_steps, dt)
-        self.policy_t = _mlp_head(4 * f, 4 * f, cfg.degree_t * cfg.num_steps, dt)
-        self.value = _mlp_head(4 * f, f, 1, dt)
+        if cfg.policy_aux_state and not cfg.obs_bearing_channels:
+            raise ValueError("policy_aux_state requires the bearing "
+                             "observation channels (obs_bearing_channels)")
+        # policy_aux_state: the two bearing channels join the heads' input
+        s = 4 * f + (2 if cfg.policy_aux_state else 0)
+        self.policy_r = _mlp_head(s, 4 * f, cfg.degree_r * cfg.num_steps, dt)
+        self.policy_t = _mlp_head(s, 4 * f, cfg.degree_t * cfg.num_steps, dt)
+        self.value = _mlp_head(s, f, 1, dt)
 
     def forward(self, state_2d: torch.Tensor, state_3d: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -82,6 +81,13 @@ class CMRAgent(nn.Module):
         x = self.state_2d_embed(state_2d.to(self.dtype).permute(0, 3, 1, 2))
         embed_2d = x.flatten(1)                                    # [B, 2F]
         state = torch.cat([embed_2d, embed_3d], dim=-1)
+        if cfg.policy_aux_state:
+            # the bearing channels are constant per sample, so any point's
+            # row carries the statistic; it skips the max-pool stack
+            if s3.shape[-1] != 7:
+                raise ValueError("policy_aux_state needs state_3d [B,N,7]; "
+                                 f"got {s3.shape[-1]} channels")
+            state = torch.cat([state, s3[:, 0, 5:]], dim=-1)
         b = state.shape[0]
         r_logits = self.policy_r(state).float().reshape(
             b, cfg.degree_r, cfg.num_steps)

@@ -154,6 +154,14 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class GlobalMean(nn.Module):
+    """Mean over H, W of NCHW keeping dims (the reference's
+    AvgPool(H/8, W/8))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
 class DenseBN(nn.Sequential):
     """``Linear`` + ``BatchNorm`` + LeakyReLU(0.2): one layer of a
     MiniPointNet (the reference's ``layer_i`` = Conv1d, BN1d, LReLU)."""

@@ -9,7 +9,11 @@ PyTorch twins of the JAX package's ``ops/geometry.py`` (same names, same
 * ``matrix_to_euler_xyz_extrinsic`` (the expert's delta) and
   ``matrix_to_euler_intrinsic_xyz_degrees`` (``pose_diff``) are scipy's
   ``as_euler('xyz')`` and ``as_euler('XYZ', degrees=True)`` in closed form,
-  with the gimbal-lock branches of the JAX package.
+  with the gimbal-lock branches of the JAX package;
+* ``angle2matrix_sxyz`` is the transforms3d-style extrinsic-xyz
+  ``Rz @ Ry @ Rx`` of the cost volume's pose grid (reference
+  models/IterModel.py:95-130), with ``make_se3``, ``se3_inverse`` and the
+  entangled ``transform_points`` beside it.
 """
 
 from __future__ import annotations
@@ -41,6 +45,37 @@ def euler_angles_to_matrix_xyz(euler: torch.Tensor) -> torch.Tensor:
     ry = axis_angle_rotation("Y", euler[..., 1])
     rz = axis_angle_rotation("Z", euler[..., 2])
     return rx @ ry @ rz
+
+
+def angle2matrix_sxyz(euler: torch.Tensor) -> torch.Tensor:
+    """Extrinsic-xyz ``euler (..., 3)`` radians -> ``Rz @ Ry @ Rx``
+    (scipy ``from_euler('xyz')``, transforms3d ``'sxyz'``)."""
+    rx = axis_angle_rotation("X", euler[..., 0])
+    ry = axis_angle_rotation("Y", euler[..., 1])
+    rz = axis_angle_rotation("Z", euler[..., 2])
+    return rz @ ry @ rx
+
+
+def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``(..., 3, 3)`` + ``(..., 3)`` -> ``(..., 4, 4)`` homogeneous
+    transform."""
+    T = R.new_zeros(R.shape[:-2] + (4, 4))
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a rigid transform."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_se3(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
+
+
+def transform_points(pc: torch.Tensor, R: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """``R p + t`` on points ``[..., N, 3]`` (entangled)."""
+    return torch.einsum("...ij,...nj->...ni", R, pc) + t[..., None, :]
 
 
 _GIMBAL_EPS = 1e-7

@@ -22,6 +22,8 @@ wrapper                                   replaces (cmr_agent_tpu/ops/
 :func:`segment_softmax_attend_backward`   ``_bwd`` (VJP of
                                           ``segment_softmax_attend_fused``)
 :func:`segment_mean_count_image`          ``segment_sum_image_fused`` (flat)
+:func:`segment_sum_shared`                ``segment_sum_fused_shared``
+:func:`mask_compact_pack`                 ``mask_compact_pack``
 ========================================  ==================================
 
 Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn` and
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _P],
     "cmr_raster_image": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_segment_sum_shared": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cmr_mask_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_error_string": [_I],
 }
 _lib: Optional[ctypes.CDLL] = None
@@ -509,6 +513,112 @@ segment_mean_count_image.launches = 0
 
 
 # --------------------------------------------------------------------------
+# 8. shared-data segment sum (the cost volume's warp)
+# --------------------------------------------------------------------------
+
+def segment_sum_shared_plain(data: torch.Tensor, idx: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """One ``data [B,N,F]`` summed under P index maps ``idx [B,P,N]`` ->
+    ``[B,P,M,F]`` f32; a row whose idx lies outside [0, M) contributes
+    nothing to that map."""
+    b, n, f = data.shape
+    p, m = idx.shape[1], num_segments
+    valid = (idx >= 0) & (idx < m)
+    seg = torch.where(valid, idx, torch.full_like(idx, m)).long()
+    out = data.new_zeros((b, p, m + 1, f), dtype=torch.float32)
+    out.scatter_add_(2, seg[..., None].expand(b, p, n, f),
+                     data.float()[:, None].expand(b, p, n, f))
+    return out[:, :, :m]
+
+
+def segment_sum_shared(data: torch.Tensor, idx: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Kernel wrapper of :func:`segment_sum_shared_plain`: f32 ``data``,
+    int32 ``idx``. The output is zeroed here, then filled by atomics."""
+    if not _on_cuda(data, idx):
+        return segment_sum_shared_plain(data, idx, num_segments)
+    b, n, f = data.shape
+    p, m = idx.shape[1], int(num_segments)
+    _require("data", data, (torch.float32,), (b, n, f))
+    _require("idx", idx, (torch.int32,), (b, p, n))
+    if m < 1:
+        raise ValueError(f"num_segments must be positive, got {m}")
+    out = torch.zeros((b, p, m, f), device=data.device)
+    _launch("cmr_segment_sum_shared", _ptr(data), _ptr(idx), _ptr(out), b, p,
+            n, m, f, _stream())
+    segment_sum_shared.launches += 1
+    return out
+
+
+segment_sum_shared.launches = 0
+
+
+# --------------------------------------------------------------------------
+# 9. stable mask compaction (the "pack"/"mega" episode's compaction)
+# --------------------------------------------------------------------------
+
+def mask_compact_pack_plain(mask: torch.Tensor, pcT: torch.Tensor,
+                            feat: torch.Tensor, k: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked rows packed first-index-first -> ``(feat [B,k,F]`` in
+    ``feat``'s dtype, ``pcT [B,3,k]`` f32``)``: output row ``j`` of a
+    sample is its ``j``-th masked row; rows past ``min(count, k)`` are 0,
+    and masked rows beyond the first ``k`` (the highest indices) are
+    dropped. ``mask [B,N]`` bool or integer (non-zero keeps), ``pcT
+    [B,3,N]``, ``feat [B,N,F]``. Exact: rows are copied, never summed."""
+    b, n = mask.shape
+    keep = mask != 0
+    rank = torch.cumsum(keep, dim=1) - 1                      # [B, N]
+    dest = torch.where(keep & (rank < k), rank, torch.full_like(rank, k))
+    feat_out = feat.new_zeros((b, k + 1, feat.shape[-1]))
+    feat_out.scatter_(1, dest[..., None].expand(-1, -1, feat.shape[-1]), feat)
+    pc_out = pcT.new_zeros((b, 3, k + 1), dtype=torch.float32)
+    pc_out.scatter_(2, dest[:, None, :].expand(-1, 3, -1), pcT.float())
+    # the spill slot k took the rows that were not kept
+    return feat_out[:, :k].contiguous(), pc_out[:, :, :k].contiguous()
+
+
+def mask_compact_pack(mask: torch.Tensor, pcT: torch.Tensor,
+                      feat: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of :func:`mask_compact_pack_plain`: f32 ``pcT``,
+    ``feat`` of any dtype with an even row size in bytes (copied as
+    bytes). Both outputs are zeroed here; two small launches (per-tile
+    counts, then the ranked copy) count as one."""
+    if not _on_cuda(mask, pcT, feat):
+        return mask_compact_pack_plain(mask, pcT, feat, k)
+    b, n = mask.shape
+    f = feat.shape[-1]
+    k = int(k)
+    _require("pcT", pcT, (torch.float32,), (b, 3, n))
+    _require("feat", feat, (feat.dtype,), (b, n, f))
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    mask = mask.contiguous()
+    feat_out = torch.zeros((b, k, f), dtype=feat.dtype, device=feat.device)
+    pc_out = torch.zeros((b, 3, k), device=feat.device)
+    row_bytes = f * feat.element_size()
+    chunk = next((c for c in (16, 4, 2)
+                  if row_bytes % c == 0 and feat.data_ptr() % c == 0
+                  and feat_out.data_ptr() % c == 0), None)
+    if chunk is None:
+        raise ValueError(f"feature rows of {row_bytes} bytes cannot be "
+                         "copied in 2-byte chunks")
+    tile_counts = torch.empty((b, (n + 255) // 256), dtype=torch.int32,
+                              device=feat.device)
+    _launch("cmr_mask_pack", _ptr(mask), _ptr(pcT), _ptr(feat),
+            _ptr(tile_counts), _ptr(feat_out), _ptr(pc_out), b, n, k,
+            row_bytes, chunk, _stream())
+    mask_compact_pack.launches += 1
+    return feat_out, pc_out
+
+
+mask_compact_pack.launches = 0
+
+
+# --------------------------------------------------------------------------
 # autograd Functions (the JAX package's custom_vjp rules)
 # --------------------------------------------------------------------------
 
@@ -574,7 +684,8 @@ class SegmentMeanCountImageFn(torch.autograd.Function):
 
 WRAPPERS = (segment_softmax_attend, gather_rows, knn,
             segment_mean_count_image_project, segment_sum,
-            segment_softmax_attend_backward, segment_mean_count_image)
+            segment_softmax_attend_backward, segment_mean_count_image,
+            segment_sum_shared, mask_compact_pack)
 PLAIN = {
     "segment_softmax_attend": segment_softmax_attend_plain,
     "gather_rows": gather_rows_plain,
@@ -583,6 +694,8 @@ PLAIN = {
     "segment_sum": segment_sum_plain,
     "segment_softmax_attend_backward": segment_softmax_attend_backward_plain,
     "segment_mean_count_image": segment_mean_count_image_plain,
+    "segment_sum_shared": segment_sum_shared_plain,
+    "mask_compact_pack": mask_compact_pack_plain,
 }
 
 

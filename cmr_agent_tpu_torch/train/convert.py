@@ -2,12 +2,16 @@
 
 The port's modules are named after the reference's torch module tree, so
 the name maps that the JAX package uses to load reference checkpoints
-(``train/convert.py``: ``multihead_name_map``, ``agent_name_map``) also
-name every port parameter. This module keeps its own copy of those maps
+(``train/convert.py``: ``multihead_name_map``, ``agent_name_map``,
+``itermodel_name_map``) also name every port parameter. This module keeps its own copy of those maps
 and inverts their layout transforms:
 
 * flax Dense kernel ``[I, O]`` -> ``Linear.weight [O, I]``
 * flax NHWC conv kernel ``[kh, kw, I, O]`` -> ``Conv2d.weight [O, I, kh, kw]``
+  (the cost volume's tower too: its reference ``Conv3d`` kernels are
+  ``(1, 3, 3)``, which both packages run as 2-D convolutions, and the input
+  axis keeps the volume's ``[img_geo | warped | occupancy | img_overlap]``
+  channel order)
 * BatchNorm scale/bias/mean/var and LayerNorm scale/bias copy as they are.
 
 :func:`flax_to_state_dict` is total: it raises on any port key left
@@ -225,10 +229,13 @@ def multihead_name_map(cfg: Config) -> List[Entry]:
 
 
 def agent_name_map(cfg: Config) -> List[Entry]:
-    """Full key map for CMRAgent (agent.pth)."""
+    """Full key map for CMRAgent (agent.pth). The names do not depend on
+    the observation settings: ``obs_bearing_channels`` widens the first
+    point block's input to 7 and ``policy_aux_state`` the heads' input by
+    2, which the shape check of :func:`flax_to_state_dict` holds."""
     b = _MapBuilder()
     for i in range(4):
-        # shortcut projections exist where in != out: (5->f), (2f->f),
+        # shortcut projections exist where in != out: (5|7->f), (2f->f),
         # (2f->f); the last block is (2f->2f) with an identity shortcut
         b.res_dense(f"state_3d_embed.{i}", f"state3d_{i}", shortcut=i != 3)
 
@@ -246,6 +253,21 @@ def agent_name_map(cfg: Config) -> List[Entry]:
         b.dense(f"{head}.0", f"{head}_0")
         b.dense(f"{head}.2", f"{head}_1")
         b.dense(f"{head}.4", f"{head}_out")
+    return b.entries
+
+
+def itermodel_name_map(cfg: Config) -> List[Entry]:
+    """Key map for IterModel's scoring tower (``cost_volume_convs``)."""
+    b = _MapBuilder()
+    conv_map = [(0, "cv_conv0_0"), (3, "cv_conv0_1"), (6, "cv_conv1_0"),
+                (9, "cv_conv1_1"), (12, "cv_conv2_0"), (15, "cv_conv2_1"),
+                (18, "cv_conv3_0"), (21, "cv_conv3_1"),
+                (24, "cv_head_0"), (26, "cv_head_1")]
+    bn_map = [(1, "cv_bn0"), (7, "cv_bn1"), (13, "cv_bn2"), (19, "cv_bn3")]
+    for ti, fn in conv_map:
+        b.conv2d(f"cost_volume_convs.{ti}", fn)
+    for ti, fn in bn_map:
+        b.bn(f"cost_volume_convs.{ti}", fn)
     return b.entries
 
 
@@ -275,16 +297,21 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def flax_to_state_dict(cfg: Config, variables, which: str = "multihead"
                        ) -> Dict[str, torch.Tensor]:
     """Turn the JAX package's ``{"params", "batch_stats"}`` (numpy leaves)
-    of a ``MultiHeadModel`` (``which="multihead"``) or a ``CMRAgent``
-    (``which="agent"``) into a ``state_dict`` of the port's module."""
+    of a ``MultiHeadModel`` (``which="multihead"``), a ``CMRAgent``
+    (``which="agent"``) or an ``IterModel`` (``which="itermodel"``) into a
+    ``state_dict`` of the port's module."""
     from ..models.agent import CMRAgent
+    from ..models.cost_volume import IterModel
     from ..models.multi_head import MultiHeadModel
     if which == "multihead":
         entries, module = multihead_name_map(cfg), MultiHeadModel(cfg)
     elif which == "agent":
         entries, module = agent_name_map(cfg), CMRAgent(cfg)
+    elif which == "itermodel":
+        entries, module = itermodel_name_map(cfg), IterModel(cfg)
     else:
-        raise ValueError(f"which must be 'multihead' or 'agent', got {which!r}")
+        raise ValueError("which must be 'multihead', 'agent' or "
+                         f"'itermodel', got {which!r}")
     target = module.state_dict()
     flat = {c: _flatten(variables.get(c, {}))
             for c in ("params", "batch_stats")}

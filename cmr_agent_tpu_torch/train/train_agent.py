@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import Config
-from ..env.environment import init_poses
+from ..env.environment import bearing_init_pose, init_poses
 from ..env.episode import run_episode
 from ..models.agent import CMRAgent, action_logprob_and_entropy
 from ..ops.geometry import pose_diff, to_disentangled
@@ -60,8 +60,12 @@ def episode_state(geo_out: Dict, batch: Dict) -> Dict:
     return state
 
 
-def _poses(state):
+def _poses(cfg: Config, state):
+    """Episode start (the identity, or the bearing yaw with
+    ``cfg.bearing_init``) and the disentangled target."""
     pose_src, pose_tgt = init_poses(state)
+    if cfg.bearing_init:
+        pose_src = bearing_init_pose(state)
     return pose_src, to_disentangled(pose_tgt, state["pc"])
 
 
@@ -77,7 +81,7 @@ def make_rollout_fn(cfg: Config, reward_apply_pose: bool = True):
                 expert_beta: Optional[float] = None):
         agent = agent_state.agent.eval()
         state = episode_state(geo_out, batch)
-        pose_src, pose_tgt = _poses(state)
+        pose_src, pose_tgt = _poses(cfg, state)
         with torch.no_grad():
             final, _, traj = run_episode(
                 agent, state, pose_src, cfg, cfg.episode_raster_topk(),
@@ -142,7 +146,7 @@ def make_val_episode_fn(cfg: Config):
     def val_episode(agent_state: AgentTrainState, geo_out, batch):
         agent = agent_state.agent.eval()
         state = episode_state(geo_out, batch)
-        pose_src, pose_tgt = _poses(state)
+        pose_src, pose_tgt = _poses(cfg, state)
         with torch.no_grad():
             final, _, _ = run_episode(agent, state, pose_src, cfg,
                                       cfg.episode_raster_topk())

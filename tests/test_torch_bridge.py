@@ -106,10 +106,13 @@ import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "orbax", "cmr_agent_tpu")]
 assert not bad, bad
+for name in ("models.cost_volume", "train.train_iter", "env.environment",
+             "serve", "ops.kernels"):
+    assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.split()[-1]) >= 15
+    assert int(res.stdout.split()[-1]) >= 17

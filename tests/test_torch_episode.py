@@ -115,11 +115,48 @@ def test_build_workload_defaults_to_cuda():
     dict(raster_mode="compact"), dict(obs3d_source="compact"),
     dict(pose_aware_observation=True), dict(obs_bearing_channels=True),
     dict(policy_aux_state=True), dict(bearing_init=True)])
-def test_config_refuses_settings_the_port_does_not_serve(setting):
+def test_config_refuses_settings_the_port_does_not_serve(setting,
+                                                         monkeypatch):
     """A JAX serving setting the port has no path for fails at config time
-    instead of running the megatopk 4-DoF episode in its place."""
-    with pytest.raises(TypeError):
-        tiny_config(**setting)
+    instead of running the megatopk 4-DoF episode in its place; a setting
+    it serves is accepted and reaches the episode."""
+    refused = {"is_6_dof": TypeError, "obs3d_source": TypeError,
+               "raster_mode": ValueError}
+    (name, value), = setting.items()
+    if name in refused and value != "pack":
+        with pytest.raises(refused[name]):
+            tiny_config(**setting)
+        return
+    if name == "policy_aux_state":       # reads the bearing channels
+        setting = dict(setting, obs_bearing_channels=True)
+    cfg = tiny_config(raster_topk=1024, action_num=2, **setting)
+    batch, model, agent, episode = serve.build_workload(cfg, 2, device="cpu")
+    seen = {"obs3d": [], "packs": 0, "bearing_inits": 0}
+    agent.register_forward_pre_hook(
+        lambda _m, args: seen["obs3d"].append(args[1]))
+    from cmr_agent_tpu_torch.ops import kernels
+    pack, bearing = kernels.mask_compact_pack, serve.bearing_init_pose
+
+    def counting(key, fn):
+        def call(*a, **kw):
+            seen[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(kernels, "mask_compact_pack", counting("packs", pack))
+    monkeypatch.setattr(serve, "bearing_init_pose",
+                        counting("bearing_inits", bearing))
+    final = episode(batch)
+    assert final.shape == (2, 4, 4) and torch.isfinite(final).all()
+    first, second = seen["obs3d"]
+    assert seen["packs"] == (1 if name == "raster_mode" else 0)
+    assert seen["bearing_inits"] == (1 if name == "bearing_init" else 0)
+    assert first.shape[-1] == (7 if cfg.obs_bearing_channels else 5)
+    # the static cloud is the same at every step; the moved one is not
+    static = torch.equal(first[..., :3], second[..., :3])
+    assert static == (name != "pose_aware_observation")
+    assert agent.policy_r[0].in_features == 4 * cfg.embed_dim + (
+        2 if name == "policy_aux_state" else 0)
 
 
 def test_build_workload_on_cpu_runs_the_episode():

@@ -155,10 +155,16 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_no_launch():
                                              _t(counts), h, w)
     kernels.knn(_t(pcT.transpose(0, 2, 1).copy()), _t(pcT.transpose(0, 2, 1)
                                                       .copy()), 4)
+    kernels.segment_sum_shared(_t(feat), torch.zeros(
+        feat.shape[0], 2, feat.shape[1], dtype=torch.int32), 3)
+    kernels.mask_compact_pack(torch.ones(pcT.shape[0], pcT.shape[2],
+                                         dtype=torch.bool), _t(pcT), _t(feat),
+                              4)
     assert kernels.launch_counts() == {
         "segment_softmax_attend": 0, "gather_rows": 0, "knn": 0,
         "segment_mean_count_image_project": 0, "segment_sum": 0,
-        "segment_softmax_attend_backward": 0, "segment_mean_count_image": 0}
+        "segment_softmax_attend_backward": 0, "segment_mean_count_image": 0,
+        "segment_sum_shared": 0, "mask_compact_pack": 0}
     meta = torch.zeros(2, 3, device="meta")
     with pytest.raises(ValueError):
         kernels.gather_rows(meta[None], torch.zeros(1, 2, dtype=torch.int32))
