@@ -57,7 +57,23 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     twin beside a second run of the kernels themselves (f32 atomics make
     every run differ a little; held in f32, reported in bf16);
 11. one serving episode under ``raster_mode`` "pack" and one under "mega"
-    against their plain twins (one mask-pack launch each).
+    against their plain twins (one mask-pack launch each);
+12. the fused dense chain at the KITTI shapes of the fused eval stacks
+    (row-major: the geo model's MiniPointNet and ResDenseBlock chains;
+    channel-major: the agent's four 3-D stages, once with ``out_max``), f32
+    and bf16, against the plain version, with the port's unfused eval
+    module on the same input as the library time;
+13. the fused serving path (``fused_stacks`` "all" and "agent", f32 and
+    bf16 + int8): launch counts of one episode, pairs/s beside the
+    unfused workload's (the three timed in turns), a profile of each, the
+    episode against its plain-kernel twin and, in f32, the fused geo
+    outputs against the unfused model on the same weights;
+14. the uncompacted eval rasters, the fresh overlap head centred on the
+    batch's median point: the compacting raster (f32, bf16, int8) and the
+    int8 pixel-id raster on the inputs of the f32 "compact" episode's
+    busiest step, then one eval episode each under ``raster_mode``
+    "compact" (f32, bf16 + int8), "flat" and "topk" (bf16 + int8) against
+    its plain twin on the same perceived state.
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -77,6 +93,7 @@ import time
 # rate; the bound of a kernel is the larger of bytes/BW and ops/rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # dense tensor-core rate
 B, N_PT, N_NODE, N_PROXY, F, KNN_K = 8, 40960, 1280, 256, 64, 16
 RASTER_K, IMG_H, IMG_W = 20480, 40, 128
 
@@ -116,8 +133,8 @@ def rand_factory(torch, seed: int, dev):
     return gen, randn, randint
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -321,8 +338,8 @@ def run_path(torch, kernels, serve, kitti_config, dtype: str):
     line("launches", dtype=dtype, **counts)
     # eval episodes run the serving kernels and never the training ones
     assert all(counts[k] > 0 for k in SERVING_KERNELS), counts
-    assert all(counts[k] == 0 for k in TRAINING_KERNELS + COMPOSE_KERNELS), \
-        counts
+    assert all(counts[k] == 0 for k in TRAINING_KERNELS + COMPOSE_KERNELS
+               + FUSION_KERNELS), counts
     assert final.shape == (B, 4, 4) and torch.isfinite(final).all()
 
     times = []
@@ -367,12 +384,15 @@ SERVING_KERNELS = ("segment_softmax_attend", "gather_rows", "knn",
 TRAINING_KERNELS = ("segment_sum", "segment_softmax_attend_backward",
                     "segment_mean_count_image")
 COMPOSE_KERNELS = ("segment_sum_shared", "mask_compact_pack")
+FUSION_KERNELS = ("fused_dense_chain", "fused_dense_chain_cn",
+                  "segment_sum_count_image_compact")
 PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
                      "normalise_kernel", "gather_rows_kernel", "knn_kernel",
                      "raster_project_kernel", "raster_finalise_kernel",
                      "segment_sum_kernel", "softmax_backward_kernel",
                      "raster_image_kernel", "segment_sum_shared_kernel",
-                     "mask_count_kernel", "mask_pack_kernel")
+                     "mask_count_kernel", "mask_pack_kernel",
+                     "dense_chain_kernel", "raster_compact_kernel")
 
 
 def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
@@ -1154,6 +1174,381 @@ def run_packed_episode(torch, kernels, serve, kitti_config, mode: str):
     return counts
 
 
+def recorded_calls(kernels, name: str, fn):
+    """Run ``fn()`` with ``kernels.<name>`` recording its arguments;
+    returns the ``(args, kwargs)`` of every call there."""
+    seen = []
+    real = getattr(kernels, name)
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+    # the wrapper counts its launch on the module attribute it finds at run
+    # time, here the spy: launches made while recording are not counted
+    spy.launches = 0
+    setattr(kernels, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(kernels, name, real)
+    return seen
+
+
+def randomise_module_(torch, module, gen) -> None:
+    """Weights at fan-in scale, biases and BatchNorm scale, bias and
+    running statistics at random (a fresh BatchNorm folds to the
+    identity), all from ``gen``."""
+    with torch.no_grad():
+        for name, t in module.named_parameters():
+            if name.endswith("weight") and t.ndim == 2:
+                t.copy_(torch.randn(t.shape, generator=gen)
+                        / t.shape[1] ** 0.5)
+            elif name.endswith("weight"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+        for name, t in module.named_buffers():
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) * 1.5 + 0.5)
+            elif name.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.3)
+
+
+def chain_row(torch, kernels, name, args, kw, library, label, dt, shape):
+    """Kernel vs plain on one chain's arguments (f32 rtol/atol 1e-5;
+    bf16 within one bf16 rounding of the output's scale, as the CPU tests
+    hold the plain version to the Pallas kernel), with its times and the
+    bound; ``library`` times the port's unfused eval module."""
+    kernel, plain = getattr(kernels, name), kernels.PLAIN[name]
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    outs = zip(got, want) if kw.get("out_max") else ((got, want),)
+    err = 0.0
+    for g, w in outs:
+        g, w = g.float(), w.float()
+        ulp = 2.0 ** -8
+        if dt == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(g, w, rtol=ulp,
+                                       atol=ulp * w.abs().max().item())
+        err = max(err, (g - w).abs().max().item())
+    x, weights = args[0], list(args[1])
+    rw = args[3] if len(args) > 3 else kw.get("res_weight")
+    mats = weights + ([rw] if rw is not None else [])
+    b = x.shape[0]
+    n = x.shape[2] if name.endswith("_cn") else x.shape[1]
+    c0, c_out = weights[0].shape[0], weights[-1].shape[-1]
+    # every layer's (and the projection's) products; x read once, the
+    # output written once, the weights and the [B, C] bias rows read once
+    ops = 2.0 * b * n * sum(w.shape[0] * w.shape[1] for w in mats)
+    elt = x.element_size()
+    nbytes = (b * n * (c0 + c_out) * elt + sum(w.numel() * elt for w in mats)
+              + b * sum(w.shape[1] for w in mats) * 4)
+    rate = F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+    row = dict(
+        max_abs_err=err, shape=shape,
+        tol=("rtol 1e-5 atol 1e-5" if dt == torch.float32 else
+             "rtol 2^-8, atol 2^-8 max|out| (one bf16 rounding)"),
+        ms=cuda_ms(lambda: kernel(*args, **kw), 20),
+        plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
+        library_ms=cuda_ms(library, 10), bound=bound(nbytes, ops, rate))
+    print_rows({f"{name}[{label}]": row})
+    return row
+
+
+def check_chain_kernels(torch, kernels, dev):
+    """Phase 12: kernels 9 and 10 at the KITTI shapes of the fused eval
+    stacks, f32 and bf16. Returns the summary rows (point_fuse_0 and
+    state3d_3 in f32, the largest chains)."""
+    from cmr_agent_tpu_torch.models.agent import _fused_virtual_concat_block
+    from cmr_agent_tpu_torch.models.layers import MiniPointNet, ResDenseBlock
+    gen = torch.Generator().manual_seed(99)
+    rows = {}
+    geo = (("raw_point_mlp", N_PT, lambda dt: MiniPointNet(3, F, dt, True)),
+           ("raw_point_mlp_nodes", N_NODE,
+            lambda dt: MiniPointNet(3, F, dt, True)),
+           ("point_mlp_0", N_PT, lambda dt: MiniPointNet(2 * F, F, dt, True)),
+           ("node_fuse_0", N_NODE,
+            lambda dt: ResDenseBlock(2 * F, F, dt, True)),
+           ("point_fuse_0", N_PT, lambda dt: ResDenseBlock(2 * F, F, dt, True)),
+           ("point_fuse_1", N_PT, lambda dt: ResDenseBlock(F, F, dt, True)))
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for label, n, make in geo:
+            module = make(dt)
+            randomise_module_(torch, module, gen)
+            module.to(dev).eval()
+            cin = module.layer_1[0].in_features if hasattr(
+                module, "layer_1") else module.net[0].in_features
+            scale = 20.0 if cin == 3 else 1.0
+            x = (torch.randn(B, n, cin, generator=gen) * scale).to(dev, dt)
+            with torch.no_grad():
+                (args, kw), = recorded_calls(kernels, "fused_dense_chain",
+                                             lambda: module(x))
+
+                def library(module=module, x=x):
+                    module.fused = False
+                    try:
+                        module(x)
+                    finally:
+                        module.fused = True
+                row = chain_row(torch, kernels, "fused_dense_chain", args,
+                                kw, library, f"{label},{tag}", dt,
+                                f"{label} [{B},{n},{cin}] {tag}")
+            if (label, tag) == ("point_fuse_0", "f32"):
+                rows["fused_dense_chain"] = row
+        # the agent's four 3-D stages, channel-major
+        blocks = [ResDenseBlock(5, F, dt, True), ResDenseBlock(2 * F, F, dt, True),
+                  ResDenseBlock(2 * F, F, dt, True),
+                  ResDenseBlock(2 * F, 2 * F, dt, True)]
+        for blk in blocks:
+            randomise_module_(torch, blk, gen)
+            blk.to(dev).eval()
+        obs = torch.randn(B, 5, N_PT, generator=gen)
+        obs[:, :3] *= 20.0
+        obs[:, 3:] = (obs[:, 3:] > 0).float()
+        obs = obs.to(dev, dt)
+        feat = torch.randn(B, F, N_PT, generator=gen).to(dev, dt)
+        pooled = feat.amax(dim=2)
+        for i, blk in enumerate(blocks):
+            with torch.no_grad():
+                if i == 0:
+                    (args, kw), = recorded_calls(
+                        kernels, "fused_dense_chain_cn",
+                        lambda: blk(obs, cn=True))
+                    nc_in = obs.transpose(1, 2).contiguous()
+                else:
+                    (args, kw), = recorded_calls(
+                        kernels, "fused_dense_chain_cn",
+                        lambda: _fused_virtual_concat_block(blk, feat,
+                                                            pooled, True))
+                    f_nc = feat.transpose(1, 2)
+                    nc_in = torch.cat([f_nc, pooled[:, None, :].expand_as(
+                        f_nc)], dim=-1).contiguous()
+
+                def library(blk=blk, nc_in=nc_in):
+                    blk.fused = False
+                    try:
+                        blk(nc_in)
+                    finally:
+                        blk.fused = True
+                label = f"state3d_{i},{tag}"
+                if i == 3 and dt == torch.float32:
+                    kw = dict(kw, out_max=True)
+                    label += ",out_max"
+                row = chain_row(torch, kernels, "fused_dense_chain_cn",
+                                args, kw, library, label, dt,
+                                f"state3d_{i} [{B},{args[0].shape[1]},"
+                                f"{N_PT}] {tag}")
+            if (i, tag) == (3, "f32"):
+                rows["fused_dense_chain_cn"] = row
+        del blocks, obs, feat
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_fused_path(torch, kernels, serve, kitti_config, dtype: str):
+    """Phase 13 for one compute dtype: the workload under ``fused_stacks``
+    "off", "all" and "agent", built from one seed (the same weights).
+    Launch counts of one episode each, then 5 rounds of one timed episode
+    of each in turn (host noise falls on all three alike), a profile of
+    each (device time does not depend on the host), and each fused
+    episode against its plain-kernel twin and its geo outputs against the
+    unfused model's. Returns the launch counts of the "all" episode."""
+    runs = {}
+    for fused in ("off", "all", "agent"):
+        cfg = kitti_config(compute_dtype=dtype, fused_stacks=fused)
+        batch, model, agent, episode = serve.build_workload(cfg, B, seed=0)
+        episode(batch)                                        # warm-up
+        kernels.reset_launch_counts()
+        final, _ = timed(torch, lambda: episode(batch))
+        counts = kernels.launch_counts()
+        line("fused_launches", dtype=dtype, fused_stacks=fused, **counts)
+        # 4 MiniPointNets (raw points, raw nodes, two point MLPs), the node
+        # fusion blocks and both heads' point fusion blocks: 12 at KITTI
+        geo_chains = 4 + cfg.node_fuse_res_num + 2 * cfg.pt_head_res_num
+        assert counts["fused_dense_chain"] == (
+            geo_chains if fused == "all" else 0), counts
+        assert counts["fused_dense_chain_cn"] == (
+            0 if fused == "off" else 4 * cfg.action_num), counts
+        assert all(counts[k] > 0 for k in SERVING_KERNELS), counts
+        assert torch.isfinite(final).all()
+        runs[fused] = dict(cfg=cfg, batch=batch, model=model, agent=agent,
+                           episode=episode, counts=counts, times=[])
+    for _ in range(5):
+        for r in runs.values():
+            r["times"].append(timed(torch, lambda: r["episode"](r["batch"]))[1])
+    with torch.inference_mode():
+        geo_off = runs["off"]["model"](runs["off"]["batch"])
+    atol, rtol = (1e-3, 0.0) if dtype == "float32" else (1e-2, 3e-2)
+    for fused, r in runs.items():
+        median = statistics.median(r["times"])
+        line("fused_throughput", dtype=dtype, fused_stacks=fused,
+             pairs_per_s=f"{B / median:.3f}",
+             episode_s=",".join(f"{t:.4f}" for t in r["times"]))
+        profile_call(torch, lambda: r["episode"](r["batch"]),
+                     unprofiled_ms=median * 1e3, phase="fused", dtype=dtype,
+                     fused_stacks=fused)
+        if fused == "off":
+            continue
+        cfg, model, agent, batch = r["cfg"], r["model"], r["agent"], r["batch"]
+        got = serve.serve_episode(model, agent, cfg, batch)
+        with plain_kernels(kernels):
+            want = serve.serve_episode(model, agent, cfg, batch)
+        steps, diff = compare_episodes(torch, got, want, atol, rtol)
+        with torch.inference_mode():
+            geo = model(batch)
+        geo_diff = {k: (geo[k].float() - geo_off[k].float()).abs().max()
+                    .item() for k in ("pc_geo_feat", "img_geo_feat",
+                                      "pc_overlap_logits")}
+        line("fused_vs_plain", dtype=dtype, fused_stacks=fused,
+             logit_atol=atol, logit_rtol=rtol, steps_compared=steps,
+             max_logit_diff=diff,
+             final_pose_max_diff=(got["final_pose"] - want["final_pose"]
+                                  ).abs().max().item(),
+             **{f"geo_vs_unfused_{k}": v for k, v in geo_diff.items()})
+        if dtype == "float32":
+            # BN folding changes only the rounding: 1e-4 on the geo outputs
+            assert all(v <= 1e-4 for v in geo_diff.values()), geo_diff
+    counts = runs["all"]["counts"]
+    del runs, geo_off
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_compact_kernels(torch, kernels, data, ids, landed: int):
+    """Phase 14, kernels: the compacting raster in f32, bf16 and int8 and
+    the int8 pixel-id raster on an episode's uncompacted ids (``data
+    [B,N,F]`` f32, as the geo model hands it over). The times are the
+    wrappers', so in int8 they include the absmax quantisation in
+    PyTorch. Returns the summary rows."""
+    b, n, f = data.shape
+    hw = IMG_H * IMG_W
+    rows = {}
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        gs, gc = kernels.segment_sum_count_image_compact(data, ids, IMG_H,
+                                                         IMG_W, dt)
+        ws, wc = kernels.segment_sum_count_image_compact_plain(
+            data, ids, IMG_H, IMG_W, dt)
+        assert torch.equal(gc, wc) and int(gc.sum().item()) == landed, mode
+        # f32 atomics add in another order; int8 sums are exact integers
+        # times the same scale
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-5)
+        # the f32 features of the rows that land (int8: of every row, for
+        # the absmax scale), every id, the sums and counts written
+        feat_rows = b * n if mode == "int8" else landed
+        rows[mode] = dict(
+            max_abs_err=(gs - ws).abs().max().item(),
+            tol="counts exact; sums rtol 1e-5 atol 1e-5", library_ms=None,
+            shape=f"[{b},{n},{f}] {mode} -> {IMG_H}x{IMG_W}, {landed} of "
+                  f"{b * n} rows land",
+            ms=cuda_ms(lambda: kernels.segment_sum_count_image_compact(
+                data, ids, IMG_H, IMG_W, dt), 20),
+            plain_ms=cuda_ms(lambda: kernels.segment_sum_count_image_compact_plain(
+                data, ids, IMG_H, IMG_W, dt), 10),
+            bound=bound(b * n * 4 + feat_rows * f * 4 + b * hw * (f + 1) * 4,
+                        (f + 1.0) * landed))
+        print_rows({f"segment_sum_count_image_compact[{mode}]": rows[mode]})
+    gm, gc = kernels.segment_mean_count_image(data, ids, IMG_H, IMG_W,
+                                              torch.int8)
+    wm, wc = kernels.segment_mean_count_image_plain(data, ids, IMG_H, IMG_W,
+                                                    torch.int8)
+    assert torch.equal(gc, wc) and int(gc.sum().item()) == landed
+    torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
+    # the "compact" raster's mean is the "flat" raster's in int8 too
+    torch.testing.assert_close(
+        rows_sums_mean(torch, kernels, data, ids), gm, rtol=1e-5, atol=1e-6)
+    int8_row = dict(
+        max_abs_err=(gm - wm).abs().max().item(),
+        tol="counts exact; means rtol 1e-5 atol 1e-6; equal to the compact "
+            "int8 raster's mean", library_ms=None,
+        shape=f"[{b},{n},{f}] int8 -> {IMG_H}x{IMG_W}, {landed} rows land",
+        ms=cuda_ms(lambda: kernels.segment_mean_count_image(
+            data, ids, IMG_H, IMG_W, torch.int8), 20),
+        plain_ms=cuda_ms(lambda: kernels.segment_mean_count_image_plain(
+            data, ids, IMG_H, IMG_W, torch.int8), 10),
+        bound=bound(b * n * 4 + b * n * f * 4 + b * hw * (f + 1) * 4,
+                    (f + 1.0) * landed))
+    print_rows({"segment_mean_count_image_int8": int8_row})
+    return {"segment_sum_count_image_compact": rows["f32"],
+            "segment_mean_count_image_int8": int8_row}
+
+
+def rows_sums_mean(torch, kernels, data, ids):
+    sums, cnt = kernels.segment_sum_count_image_compact(data, ids, IMG_H,
+                                                        IMG_W, torch.int8)
+    return sums / cnt.clamp_min(1.0)[..., None]
+
+
+def run_raster_episodes(torch, kernels, serve, kitti_config):
+    """Phase 14: one eval episode each under "compact" (f32, then bf16 +
+    int8), "flat" and "topk" (bf16 + int8), the overlap head of the fresh
+    weights centred on the batch's median point
+    (``serve.centre_overlap_head_``: a fresh head may predict no overlap at
+    all, and then no row reaches the raster). Before the first, the
+    compacting and the int8 pixel-id rasters on the inputs of the f32
+    "compact" episode's step that lands the most rows. Each episode runs
+    on its geo state (``serve.perceive``) with the kernels and with their
+    plain versions, so that both twins see the same overlap flags. Returns
+    (summary rows, the f32 "compact" episode's launches, the bf16 "flat"
+    episode's launches)."""
+    rows, counts_by = {}, {}
+    hw = IMG_H * IMG_W
+    for mode, dtype in (("compact", "float32"), ("compact", "bfloat16"),
+                        ("flat", "bfloat16"), ("topk", "bfloat16")):
+        cfg = kitti_config(raster_mode=mode, compute_dtype=dtype)
+        batch, model, agent, episode = serve.build_workload(cfg, B, seed=0)
+        serve.centre_overlap_head_(model, batch)
+        if not rows:
+            calls = recorded_calls(kernels, "segment_sum_count_image_compact",
+                                   lambda: episode(batch))
+            landed = [int(((a[1] >= 0) & (a[1] < hw)).sum().item())
+                      for a, _ in calls]
+            (args, _) = calls[landed.index(max(landed))]
+            line("raster_compact_steps", rows_landed_per_step=landed)
+            rows = check_compact_kernels(torch, kernels,
+                                         args[0].float().contiguous(),
+                                         args[1], max(landed))
+            del calls, args
+        episode(batch)                                        # warm-up
+        kernels.reset_launch_counts()
+        final, seconds = timed(torch, lambda: episode(batch))
+        counts = kernels.launch_counts()
+        counts_by[(mode, dtype)] = counts
+        line("raster_episode_launches", raster_mode=mode, dtype=dtype,
+             raster_topk=cfg.episode_raster_topk(),
+             episode_ms=f"{seconds * 1e3:.2f}", **counts)
+        n = cfg.action_num
+        if mode == "compact":
+            assert counts["segment_sum_count_image_compact"] == n, counts
+            assert counts["segment_mean_count_image"] == 0, counts
+        else:
+            assert counts["segment_mean_count_image"] == n, counts
+            assert counts["segment_sum_count_image_compact"] == 0, counts
+        assert counts["segment_mean_count_image_project"] == 0, counts
+        assert counts["mask_compact_pack"] == 0, counts
+        assert final.shape == (B, 4, 4) and torch.isfinite(final).all()
+        atol, rtol = (1e-3, 0.0) if dtype == "float32" else (1e-2, 3e-2)
+        with torch.inference_mode():
+            state = serve.perceive(model, batch)
+            got = serve.refine_episode(cfg, agent, state)
+            with plain_kernels(kernels):
+                want = serve.refine_episode(cfg, agent, state)
+        steps, diff = compare_episodes(
+            torch, {"steps": got[1], "final_pose": got[0]},
+            {"steps": want[1], "final_pose": want[0]}, atol, rtol)
+        line("raster_episode_vs_plain", raster_mode=mode, dtype=dtype,
+             overlap_points=int(state["pc_overlap_pred"].sum().item()),
+             logit_atol=atol, logit_rtol=rtol, steps_compared=steps,
+             max_logit_diff=diff,
+             final_pose_max_diff=(got[0] - want[0]).abs().max().item())
+        del model, agent, episode, state
+        torch.cuda.empty_cache()
+    return (rows, counts_by[("compact", "float32")],
+            counts_by[("flat", "bfloat16")])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1203,14 +1598,32 @@ def main() -> int:
     pack_counts = run_packed_episode(torch, kernels, serve, kitti_config,
                                      "pack")
     run_packed_episode(torch, kernels, serve, kitti_config, "mega")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rows.update(check_chain_kernels(torch, kernels, dev))
+    fused_counts = run_fused_path(torch, kernels, serve, kitti_config,
+                                  "float32")
+    run_fused_path(torch, kernels, serve, kitti_config, "bfloat16")
+    raster_rows, compact_counts, flat_counts = run_raster_episodes(
+        torch, kernels, serve, kitti_config)
+    rows.update(raster_rows)
+    line("fourth_slice_phases", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode,
-    # one geo train step, the agent training run, one composed request, or
-    # the "pack" episode
+    # one geo train step, the agent training run, one composed request, the
+    # "pack" episode, the fused ("all", f32) episode, the "compact" (f32)
+    # or the "flat" (bf16 + int8) episode
     counts.update({k: geo_counts[k] for k in ("segment_sum",
                                                "segment_softmax_attend_backward")})
     counts["segment_mean_count_image"] = agent_counts["segment_mean_count_image"]
     counts["segment_sum_shared"] = composed_counts["segment_sum_shared"]
     counts["mask_compact_pack"] = pack_counts["mask_compact_pack"]
+    counts["fused_dense_chain"] = fused_counts["fused_dense_chain"]
+    counts["fused_dense_chain_cn"] = fused_counts["fused_dense_chain_cn"]
+    counts["segment_sum_count_image_compact"] = compact_counts[
+        "segment_sum_count_image_compact"]
+    counts["segment_mean_count_image_int8"] = flat_counts[
+        "segment_mean_count_image"]
 
     sources = {
         "segment_softmax_attend": ("segment_softmax.cu", 126),
@@ -1223,6 +1636,10 @@ def main() -> int:
         "segment_mean_count_image": ("raster_image.cu", 685),
         "segment_sum_shared": ("segment_sum_shared.cu", 320),
         "mask_compact_pack": ("mask_pack.cu", 1467),
+        "fused_dense_chain": ("dense_chain.cu", 1138),
+        "fused_dense_chain_cn": ("dense_chain.cu", 1347),
+        "segment_sum_count_image_compact": ("raster_compact.cu", 857),
+        "segment_mean_count_image_int8": ("raster_image.cu", 685),
     }
     summary = {"kernels": [
         {"name": name, "route": "cuda",

@@ -3,16 +3,23 @@
 The JAX package's ``Config`` fields and defaults, less the settings the
 port does not serve yet: it serves the 4-DoF agent over the full cloud
 (with the flagship's pose-aware, bearing and aux-state observation
-options) and the eval rasters that end in the projection-fused kernel
-(``raster_mode`` ``"megatopk"``, ``"pack"``, ``"mega"``). So ``is_6_dof``,
+options) and every eval raster of the JAX package (``raster_mode``
+"megatopk", "pack", "mega", "topk", "flat", "compact"). So ``is_6_dof``,
 ``obs3d_source`` and ``cost_volume_remat`` are not fields here and passing
-one raises ``TypeError``; a ``raster_mode`` the port has no path for
-(``"topk"``, ``"flat"``, ``"compact"``) raises ``ValueError``, instead of
-serving something else. Other differences:
-``torch_dtype()`` replaces ``jnp_dtype()``, and there is no ``use_pallas``
-switch — on the card the hand-written kernels always run, on the CPU their
-plain PyTorch versions do (the tensor's device decides, see
-:mod:`cmr_agent_tpu_torch.ops.kernels`).
+one raises ``TypeError``; an unknown ``raster_mode`` or ``fused_stacks``
+raises ``ValueError``. Other differences:
+
+* ``torch_dtype()`` replaces ``jnp_dtype()``, and there is no
+  ``use_pallas`` switch: on the card the hand-written kernels always run,
+  on the CPU their plain PyTorch versions do (the tensor's device decides,
+  see :mod:`cmr_agent_tpu_torch.ops.kernels`);
+* the port reads no environment variable. The JAX package's trace-time
+  switch ``CMR_FUSED_STACKS`` is the field ``fused_stacks``: unset is
+  ``"off"``, ``"1"`` is ``"all"`` (the geo model's and the agent's
+  pointwise stacks run as fused dense chains in eval mode, and eval
+  episodes hand the agent a channel-major observation) and ``"agent"`` is
+  ``"agent"`` (the agent's stacks only). ``CMR_OBS3D_CN`` (a channel-major
+  observation for an unfused agent) has no counterpart.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch
 # Discrete agent action tables (reference: config/KittiConfig.py:105-106).
 _R_STEPS_DEG = (-62.5, -12.5, -2.5, -0.5, -0.1, 0.0, 0.1, 0.5, 2.5, 12.5, 62.5)
 _T_STEPS = (-8.1, -2.7, -0.9, -0.3, -0.1, 0.0, 0.1, 0.3, 0.9, 2.7, 8.1)
-RASTER_MODES = ("megatopk", "pack", "mega")
+RASTER_MODES = ("megatopk", "pack", "mega", "topk", "flat", "compact")
+FUSED_STACKS = ("off", "all", "agent")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,17 +135,24 @@ class Config:
 
     # <----------- serving knobs ---------->
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    # Eval episode's one-off compaction before the projection-fused raster:
-    #   "megatopk" (default): ranked top-K by in-camera score, lowest
-    #     scores dropped beyond raster_topk;
+    # The eval episode's observation raster:
+    #   "megatopk" (default): ranked top-K compaction by in-camera score
+    #     (lowest scores dropped beyond raster_topk), then the
+    #     projection-fused raster kernel every step;
     #   "pack" / "mega": the streaming mask-pack kernel (first-index-first,
-    #     highest indices dropped beyond raster_topk). In this package
-    #     "mega" is an alias of "pack": both run the same code, pack then
-    #     the projection-fused raster kernel. (The JAX package gives "pack"
-    #     another per-step raster; the name is kept so that its configs
-    #     load.)
-    # Training episodes always take the ranked top-K and the pixel-id
-    # raster (the pack kernel has no gradient).
+    #     highest indices dropped beyond raster_topk), then the
+    #     projection-fused raster. In this package "mega" is an alias of
+    #     "pack". (The JAX package gives "pack" another per-step raster;
+    #     the name is kept so that its configs load.)
+    #   "topk": the ranked top-K compaction, then the pixel-id raster of
+    #     the compacted rows every step;
+    #   "flat": no compaction; the pixel-id raster over the whole cloud
+    #     every step (rows outside the frame or the overlap routed out);
+    #   "compact": no compaction; the compacting raster kernel over the
+    #     whole cloud every step (it packs each tile's valid rows itself,
+    #     and drops none).
+    # Training episodes take the ranked top-K and the pixel-id raster under
+    # the first three (the pack kernel has no gradient).
     raster_mode: str = "megatopk"
     raster_topk: int = 20480
     # int8 observation raster: applies to bf16 episodes only (as in the
@@ -157,12 +172,31 @@ class Config:
     # predicted-overlap sector's centroid onto the camera's +z axis,
     # instead of the identity.
     bearing_init: bool = False
+    # Fused eval stacks (the JAX package's CMR_FUSED_STACKS, see the module
+    # docstring): "off", "all" (geo model and agent) or "agent". Modules in
+    # eval() mode fold BatchNorm into the preceding Dense and run each
+    # pointwise stack as one fused dense chain; train() mode keeps the
+    # layer-by-layer modules (batch statistics do not fold).
+    fused_stacks: str = "off"
 
     def __post_init__(self):
         if self.raster_mode not in RASTER_MODES:
             raise ValueError(
                 f"raster_mode {self.raster_mode!r} is not served by the "
                 f"port; choose one of {RASTER_MODES}")
+        if self.fused_stacks not in FUSED_STACKS:
+            raise ValueError(f"fused_stacks {self.fused_stacks!r}: choose "
+                             f"one of {FUSED_STACKS}")
+
+    @property
+    def fused_geo(self) -> bool:
+        """The geo model's pointwise stacks fuse in eval mode."""
+        return self.fused_stacks == "all"
+
+    @property
+    def fused_agent(self) -> bool:
+        """The agent's pointwise stacks fuse in eval mode."""
+        return self.fused_stacks in ("all", "agent")
 
     @property
     def obs3d_channels(self) -> int:
@@ -215,11 +249,13 @@ class Config:
             else torch.float32
 
     def episode_raster_topk(self):
-        """Top-K of the episode's one-off observation compaction, or None
-        when K would cover the whole cloud (the JAX package then rasters
-        the full cloud; the port compacts to ``num_pt`` rows instead,
-        which gives the same pixels)."""
-        if 0 < self.raster_topk < self.num_pt:
+        """Top-K of the episode's one-off observation compaction, or None:
+        always for "flat" and "compact", which raster the whole cloud, and
+        where K would cover the whole cloud (the JAX package then rasters
+        the full cloud; under the projection-fused modes the port compacts
+        to ``num_pt`` rows instead, which gives the same pixels)."""
+        if (self.raster_mode in ("topk", "pack", "mega", "megatopk")
+                and 0 < self.raster_topk < self.num_pt):
             return self.raster_topk
         return None
 

@@ -25,9 +25,10 @@ static inline unsigned int cmr_blocks(long long total, int threads) {
 }
 
 // ---------------------------------------------------------------------------
-// Pixel raster, shared by the projection-fused raster (raster.cu) and the
-// pixel-id raster (raster_image.cu); the two differ only in where a row's
-// pixel comes from. The accumulator is [B, h*w, F+1]: F feature sums, then
+// Pixel raster, shared by the projection-fused raster (raster.cu), the
+// pixel-id raster (raster_image.cu) and the compacting raster
+// (raster_compact.cu); they differ only in where a row's pixel comes from
+// and which rows a block visits. The accumulator is [B, h*w, F+1]: F feature sums, then
 // the count.
 // ---------------------------------------------------------------------------
 
@@ -61,13 +62,14 @@ __device__ inline void raster_accumulate_row(Acc* __restrict__ dst,
 }
 
 // One thread per (pixel, channel): means = sums (times the int8 scale, when
-// given) / max(count, 1); counts written once per pixel.
+// given) / max(count, 1), or the scaled sums themselves when `divide` is
+// false; counts written once per pixel.
 template <typename Acc>
 __global__ void raster_finalise_kernel(const Acc* __restrict__ acc,
                                        const float* __restrict__ scale,
                                        float* __restrict__ means,
                                        float* __restrict__ cnt_out, int HW,
-                                       int F, long long total) {
+                                       int F, long long total, bool divide) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int c = (int)(i % F);
@@ -77,17 +79,18 @@ __global__ void raster_finalise_kernel(const Acc* __restrict__ acc,
   const float cnt = (float)row[F];
   float s = (float)row[c];
   if (scale != nullptr) s = s * scale[(size_t)b * F + c];
-  means[i] = s / fmaxf(cnt, 1.f);
+  means[i] = divide ? s / fmaxf(cnt, 1.f) : s;
   if (c == 0) cnt_out[bp] = cnt;
 }
 
 template <typename Acc>
 int raster_finalise(const Acc* acc, const float* scale, float* means,
-                    float* cnt_out, int B, int HW, int F, cudaStream_t st) {
+                    float* cnt_out, int B, int HW, int F, cudaStream_t st,
+                    bool divide = true) {
   const int threads = 256;
   const long long total = (long long)B * HW * F;
   raster_finalise_kernel<Acc><<<cmr_blocks(total, threads), threads, 0, st>>>(
-      acc, scale, means, cnt_out, HW, F, total);
+      acc, scale, means, cnt_out, HW, F, total, divide);
   CMR_RETURN_IF_ERROR();
   return 0;
 }

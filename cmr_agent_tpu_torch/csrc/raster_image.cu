@@ -17,8 +17,11 @@
 //
 // Operand modes: f32, and bf16 read as bf16 and summed in f32 (one
 // rounding of the inputs, exact products), as the TPU kernel's bf16
-// one-hot matmul with f32 accumulation. The int8 mode of the TPU kernel
-// is not ported (no training episode uses it).
+// one-hot matmul with f32 accumulation; int8 (the bf16 eval episodes'
+// "flat" and "topk" rasters, :612-621, :676-680), quantised by the wrapper
+// with one absmax scale per (sample, channel) over all K rows, summed in
+// exact, order-free int32 atomics and scaled in the second pass, as the
+// TPU kernel's int8 matmul with int32 accumulation.
 //
 // Bound on the H100: memory. At the training path's shape (B=8, K=20480,
 // F=64, h*w=40*128) the function must read every id (0.66 MB) and the
@@ -35,8 +38,8 @@ namespace {
 template <typename T>
 __global__ void raster_image_kernel(const T* __restrict__ feat,
                                     const int* __restrict__ ids,
-                                    float* __restrict__ acc, int K, int F,
-                                    int HW) {
+                                    typename AccumOf<T>::type* __restrict__ acc,
+                                    int K, int F, int HW) {
   const int b = blockIdx.y;
   const int j = blockIdx.x * blockDim.y + threadIdx.y;
   if (j >= K) return;
@@ -48,32 +51,40 @@ __global__ void raster_image_kernel(const T* __restrict__ feat,
 }
 
 template <typename T>
-int launch(const void* feat, const int* ids, float* acc, float* means,
-           float* cnt_out, int B, int K, int F, int HW, cudaStream_t st) {
+int launch(const void* feat, const int* ids, const float* scale, void* acc,
+           float* means, float* cnt_out, int B, int K, int F, int HW,
+           cudaStream_t st) {
+  using Acc = typename AccumOf<T>::type;
   dim3 block(32, 8);
   dim3 grid((K + 7) / 8, B);
-  raster_image_kernel<T><<<grid, block, 0, st>>>(static_cast<const T*>(feat),
-                                                 ids, acc, K, F, HW);
+  raster_image_kernel<T><<<grid, block, 0, st>>>(
+      static_cast<const T*>(feat), ids, static_cast<Acc*>(acc), K, F, HW);
   CMR_RETURN_IF_ERROR();
-  return raster_finalise<float>(acc, nullptr, means, cnt_out, B, HW, F, st);
+  return raster_finalise(static_cast<const Acc*>(acc), scale, means, cnt_out,
+                         B, HW, F, st);
 }
 
 }  // namespace
 
-// feat [B, K, F] of kind 0 = f32, 1 = bf16; ids [B, K] int32; acc
-// [B, HW, F+1] f32 zeroed; means [B, HW, F] and cnt_out [B, HW] f32.
-// Returns a cudaError_t, or -1 for an unknown kind.
+// feat [B, K, F] of kind 0 = f32, 1 = bf16, 2 = int8; ids [B, K] int32;
+// scale [B, F] f32 (int8 only, else null); acc [B, HW, F+1] zeroed, f32
+// (kinds 0, 1) or int32 (kind 2); means [B, HW, F] and cnt_out [B, HW]
+// f32. Returns a cudaError_t, or -1 for an unknown kind.
 CMR_EXPORT int cmr_raster_image(const void* feat, int feat_kind,
-                                const int* ids, float* acc, float* means,
-                                float* cnt_out, int B, int K, int F, int HW,
-                                void* stream) {
+                                const int* ids, const float* scale, void* acc,
+                                float* means, float* cnt_out, int B, int K,
+                                int F, int HW, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (feat_kind) {
     case 0:
-      return launch<float>(feat, ids, acc, means, cnt_out, B, K, F, HW, st);
+      return launch<float>(feat, ids, nullptr, acc, means, cnt_out, B, K, F,
+                           HW, st);
     case 1:
-      return launch<__nv_bfloat16>(feat, ids, acc, means, cnt_out, B, K, F,
-                                   HW, st);
+      return launch<__nv_bfloat16>(feat, ids, nullptr, acc, means, cnt_out, B,
+                                   K, F, HW, st);
+    case 2:
+      return launch<int8_t>(feat, ids, scale, acc, means, cnt_out, B, K, F,
+                            HW, st);
     default:
       return -1;
   }

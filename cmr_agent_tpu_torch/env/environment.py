@@ -1,9 +1,11 @@
 """Registration environment (PyTorch twin of the JAX package's
 ``env/environment.py``; reference environment/environment.py):
 ``init_poses``, the episode's compaction (ranked top-K, or the mask-pack
-kernel), the observation in the nc layout with either raster (the
-projection-fused "mega" raster of eval episodes, or the pixel-id "flat"
-raster of training episodes), ``apply_action``, the training episode's
+kernel), the observation in the nc layout or, for a fused agent, the
+channel-major cn layout, with each raster (the projection-fused "mega"
+raster or the pixel-id raster of a compacted set; the pixel-id or the
+compacting raster of the whole cloud), ``apply_action``, the training
+episode's
 ``expert_action`` and ``step_reward``, and what the coarse-to-fine
 composition needs: ``bearing_init_pose``, ``apply_coarse_pose``,
 ``compose_disentangled`` and the ground-truth-free verification statistics
@@ -19,8 +21,9 @@ import torch
 
 from ..ops import kernels
 from ..ops.geometry import (euler_angles_to_matrix_xyz, frustum_mask,
-                            make_se3, matrix_to_euler_xyz_extrinsic,
-                            project_points, se3_inverse,
+                            frustum_mask_cn, make_se3,
+                            matrix_to_euler_xyz_extrinsic, project_points,
+                            project_points_cn, se3_inverse,
                             transform_points_disentangled)
 from ..ops.scatter import scatter_mean_image
 
@@ -232,58 +235,73 @@ def mega_raster(feats, R, t, image_h: int, image_w: int, raster_dtype,
     return means.reshape(b, image_h, image_w, f)
 
 
-def flat_raster(feats, R, t, image_h: int, image_w: int, raster_dtype,
-                mean: torch.Tensor) -> torch.Tensor:
-    """Pixel-id raster of the compacted rows (the training episodes'
-    path, environment.py:450-467): move them about the full-cloud
-    centroid ``mean [B,3]``, project, round to a pixel, and route rows
-    outside the frame or past the valid prefix out through
-    :func:`..ops.scatter.scatter_mean_image`. Returns ``[B, h, w, F]``."""
-    mean = mean[:, None, :]
-    moved = (torch.einsum("bij,bnj->bni", R, feats["raster_pc"] - mean)
-             + mean + t[:, None, :])
-    proj = project_points(moved, feats["K"])
-    valid = frustum_mask(proj, w=image_w, h=image_h) & feats["raster_valid"]
-    xi = torch.round(proj[..., 0]).to(torch.int32)
-    yi = torch.round(proj[..., 1]).to(torch.int32)
-    return scatter_mean_image(feats["raster_feat"], yi * image_w + xi, valid,
-                              image_h, image_w, compute_dtype=raster_dtype)
+def _pixel_ids(proj_x, proj_y, image_w: int) -> torch.Tensor:
+    return (torch.round(proj_y).to(torch.int32) * image_w
+            + torch.round(proj_x).to(torch.int32))
 
 
 def observation_from_pose(feats, pose, image_h: int, image_w: int,
                           raster_dtype: Optional[torch.dtype] = None,
                           raster_mode: str = "mega",
                           pose_aware: bool = False,
-                          bearing_channels: bool = False):
-    """2-D and 3-D observations under the current pose estimate (nc layout;
-    environment.py:443-469, 481-505).
+                          bearing_channels: bool = False,
+                          obs3d_layout: str = "nc"):
+    """2-D and 3-D observations under the current pose estimate
+    (environment.py:384-605).
 
-    ``feats`` must be compacted (:func:`compact_observation_state`).
-    ``raster_mode`` "mega" (the projection-fused kernel, eval episodes) or
-    "flat" (projection in PyTorch, then the pixel-id kernel; training
-    episodes, whose JAX raster has a VJP). ``pose_aware`` feeds the 3-D
-    observation the cloud moved by the current estimate instead of the
-    static cloud; ``bearing_channels`` appends the unit (x, z) bearing of
-    the predicted-overlap sector's centroid under the current estimate as
-    two constant per-point channels. Returns ``(observation_2d
-    [B,H,W,2F], observation_3d [B,N,5 (+2)])``.
+    The raster follows ``feats`` and ``raster_mode``. A compacted state
+    (:func:`compact_observation_state`) rasters its rows with the
+    projection-fused kernel (``"mega"``) or, otherwise, projected here and
+    through the pixel-id kernel (training episodes, whose JAX raster has a
+    VJP, and ``raster_mode`` "topk"). An uncompacted state rasters the
+    whole cloud, routing out the rows outside the frame or the predicted
+    overlap, through the pixel-id kernel (``"flat"``) or the compacting
+    kernel (``"compact"``). ``raster_dtype`` None/f32, bf16 or int8.
+    ``pose_aware`` feeds the 3-D observation the cloud moved by the current
+    estimate instead of the static cloud; ``bearing_channels`` appends the
+    unit (x, z) bearing of the predicted-overlap sector's centroid under
+    the current estimate as two constant per-point channels. Returns
+    ``(observation_2d [B,H,W,2F], observation_3d [B,N,5 (+2)])``, or with
+    ``obs3d_layout="cn"`` (the fused agent's) ``observation_3d [B,5 (+2),
+    N]``, every per-point intermediate then channel-major.
     """
-    pc = feats["pc"]
+    if raster_mode not in ("mega", "flat", "compact"):
+        raise ValueError(f"unknown raster_mode {raster_mode!r}")
+    if obs3d_layout == "cn":
+        return _observation_from_pose_cn(feats, pose, image_h, image_w,
+                                         raster_dtype, raster_mode,
+                                         pose_aware, bearing_channels)
+    if obs3d_layout != "nc":
+        raise ValueError(f"unknown obs3d_layout {obs3d_layout!r}")
+    pc, K = feats["pc"], feats["K"]
+    overlap = feats["pc_overlap_pred"]
     R, t = pose[:, :3, :3], pose[:, :3, 3]
     # disentangled transforms rotate about the FULL cloud centroid
     mean_full = pc.mean(dim=1)
-    if raster_mode == "mega":
-        raster = mega_raster
-    elif raster_mode == "flat":
-        raster = flat_raster
-    else:
-        raise ValueError(f"unknown raster_mode {raster_mode!r}")
-    proj_feat = raster(feats, R, t, image_h, image_w, raster_dtype, mean_full)
     moved = transform_points_disentangled(pc, R, t)
-    in_cam = frustum_mask(project_points(moved, feats["K"]), w=image_w,
-                          h=image_h)
+    proj = project_points(moved, K)
+    in_cam = frustum_mask(proj, w=image_w, h=image_h)
+    if "raster_pc" in feats and raster_mode == "mega":
+        proj_feat = mega_raster(feats, R, t, image_h, image_w, raster_dtype,
+                                mean_full)
+    elif "raster_pc" in feats:
+        mean = mean_full[:, None, :]
+        r_moved = (torch.einsum("bij,bnj->bni", R, feats["raster_pc"] - mean)
+                   + mean + t[:, None, :])
+        r_proj = project_points(r_moved, K)
+        r_valid = (frustum_mask(r_proj, w=image_w, h=image_h)
+                   & feats["raster_valid"])
+        proj_feat = scatter_mean_image(
+            feats["raster_feat"], _pixel_ids(r_proj[..., 0], r_proj[..., 1],
+                                             image_w),
+            r_valid, image_h, image_w, compute_dtype=raster_dtype)
+    else:
+        proj_feat = scatter_mean_image(
+            feats["pc_geo_feat"], _pixel_ids(proj[..., 0], proj[..., 1],
+                                             image_w),
+            in_cam & overlap, image_h, image_w, compute_dtype=raster_dtype,
+            mode="compact" if raster_mode == "compact" else "flat")
     observation_2d = torch.cat([feats["img_geo_feat"], proj_feat], dim=-1)
-    overlap = feats["pc_overlap_pred"]
     channels = [moved if pose_aware else pc, overlap[..., None].to(pc.dtype),
                 in_cam[..., None].to(pc.dtype)]
     if bearing_channels:
@@ -295,6 +313,57 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
                         .to(pc.dtype))
     observation_3d = torch.cat(channels, dim=-1)
     return observation_2d, observation_3d
+
+
+def _observation_from_pose_cn(feats, pose, image_h: int, image_w: int,
+                              raster_dtype, raster_mode: str,
+                              pose_aware: bool, bearing_channels: bool):
+    """:func:`observation_from_pose` with every per-point intermediate
+    channel-major ``[B, C, N]`` (environment.py:508-605). ``feats`` may
+    carry ``pcT [B, 3, N]`` (the episode builds it once)."""
+    pc = feats["pc"]
+    K = feats["K"].float()
+    overlap = feats["pc_overlap_pred"]
+    dt_ = pc.dtype
+    pcT = feats.get("pcT")
+    pcT = (pc.transpose(1, 2) if pcT is None else pcT).float()
+    meanT = pcT.mean(dim=2, keepdim=True)                      # [B, 3, 1]
+    R, t = pose[:, :3, :3].float(), pose[:, :3, 3].float()
+
+    def projectT(ptsT):
+        movedT = (torch.einsum("bij,bjn->bin", R, ptsT - meanT) + meanT
+                  + t[:, :, None])
+        projT = project_points_cn(movedT, K)
+        return movedT, projT, frustum_mask_cn(projT, w=image_w, h=image_h)
+
+    movedT, projT, in_cam = projectT(pcT)
+    if "raster_pcT" in feats and raster_mode == "mega":
+        proj_feat = mega_raster(feats, R, t, image_h, image_w, raster_dtype,
+                                meanT[:, :, 0])
+    elif "raster_pcT" in feats:
+        _, r_projT, r_in_cam = projectT(feats["raster_pcT"].float())
+        proj_feat = scatter_mean_image(
+            feats["raster_feat"], _pixel_ids(r_projT[:, 0], r_projT[:, 1],
+                                             image_w),
+            r_in_cam & feats["raster_valid"], image_h, image_w,
+            compute_dtype=raster_dtype)
+    else:
+        proj_feat = scatter_mean_image(
+            feats["pc_geo_feat"], _pixel_ids(projT[:, 0], projT[:, 1],
+                                             image_w),
+            in_cam & overlap, image_h, image_w, compute_dtype=raster_dtype,
+            mode="compact" if raster_mode == "compact" else "flat")
+    observation_2d = torch.cat([feats["img_geo_feat"], proj_feat], dim=-1)
+    channels = [(movedT if pose_aware else pcT).to(dt_),
+                overlap[:, None, :].to(dt_), in_cam[:, None, :].to(dt_)]
+    if bearing_channels:
+        w_row = overlap.float()[:, None, :]                        # [B, 1, N]
+        cxz = ((movedT[:, (0, 2), :] * w_row).sum(dim=2)
+               / w_row.sum(dim=2).clamp_min(1.0))                  # [B, 2]
+        unit = cxz / (torch.linalg.norm(cxz, dim=-1, keepdim=True) + 1e-6)
+        channels.append(unit[:, :, None].expand(-1, -1, pcT.shape[2])
+                        .to(dt_))
+    return observation_2d, torch.cat(channels, dim=1)
 
 
 def apply_action(action_r, action_t, pose_source, r_steps, t_steps):

@@ -14,6 +14,9 @@ from ..models.agent import action_from_logits, action_logprob_and_entropy
 from .environment import (apply_action, compact_observation_state,
                           expert_action, observation_from_pose, step_reward)
 
+# the raster modes whose eval episodes end in the projection-fused kernel
+PROJECTED_MODES = ("megatopk", "pack", "mega")
+
 
 def raster_dtype_for(cfg: Config, training: bool = False
                      ) -> Optional[torch.dtype]:
@@ -42,17 +45,25 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     ``state`` holds ``pc, K, pc_overlap_pred, pc_geo_feat, img_geo_feat``
     (and optionally ``pc_is_in_cam_scores``, the compaction's ranking),
     plus ``pc_in_cam_space`` and ``pc_mask`` when the trajectory (with its
-    rewards) is collected. The observation set is compacted once to
-    ``raster_topk`` rows (``None``: all ``num_pt`` rows, which rasters the
-    same pixels as the JAX package's uncompacted path).
+    rewards) is collected. Callers pass ``cfg.episode_raster_topk()``.
 
-    Eval episodes (the defaults) raster with the projection-fused kernel,
-    after the ranked top-K compaction (``cfg.raster_mode`` "megatopk") or
-    the mask-pack kernel's ("pack", "mega"). Training episodes
-    (``collect_trajectory``) keep the JAX package's rules for them: the
-    ranked top-K, the flat pixel-id raster, in bf16 or f32 but never
-    int8. ``cfg.pose_aware_observation`` and ``cfg.obs_bearing_channels``
-    shape the 3-D observation of both. ``deterministic=False`` samples actions from ``generator``;
+    The observation set is compacted once to ``raster_topk`` rows when it
+    is given, and under the projection-fused modes ("megatopk", "pack",
+    "mega") always (``None``: all ``num_pt`` rows, which rasters the same
+    pixels as the JAX package's uncompacted path). Eval episodes then
+    raster with the projection-fused kernel, after the ranked top-K
+    compaction ("megatopk") or the mask-pack kernel's ("pack", "mega");
+    under "topk" with the pixel-id raster of the ranked top-K; under
+    "flat" and "compact" (no compaction) with the pixel-id or the
+    compacting raster of the whole cloud. Training episodes
+    (``collect_trajectory``) keep the JAX package's rules for them: under
+    the projection-fused modes the ranked top-K and the pixel-id raster,
+    in bf16 or f32 but never int8. With ``cfg.fused_agent`` an eval
+    episode hands the agent channel-major observations (built from ``pcT``,
+    made once here). ``cfg.pose_aware_observation`` and
+    ``cfg.obs_bearing_channels`` shape the 3-D observation of both.
+
+    ``deterministic=False`` samples actions from ``generator``;
     ``with_expert`` labels each step with :func:`expert_action` toward
     ``pose_target``; ``expert_beta`` (DAgger scheduled sampling, needs
     ``with_expert``) takes the expert's action instead with that
@@ -71,12 +82,22 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     t_steps = torch.as_tensor(cfg.t_steps_array(), device=device)
     if expert_beta is not None and not with_expert:
         raise ValueError("expert_beta needs with_expert=True")
-    k = raster_topk if raster_topk is not None else state["pc"].shape[1]
-    packed = cfg.raster_mode in ("pack", "mega") and not collect_trajectory
-    state = compact_observation_state(state, k,
-                                      mode="pack" if packed else "topk")
+    projected = cfg.raster_mode in PROJECTED_MODES
+    if raster_topk is not None or projected:
+        k = raster_topk if raster_topk is not None else state["pc"].shape[1]
+        packed = cfg.raster_mode in ("pack", "mega") and not collect_trajectory
+        state = compact_observation_state(state, k,
+                                          mode="pack" if packed else "topk")
     raster_dtype = raster_dtype_for(cfg, training=collect_trajectory)
-    raster_mode = "flat" if collect_trajectory else "mega"
+    if projected:
+        raster_mode = "flat" if collect_trajectory else "mega"
+    else:
+        raster_mode = "compact" if cfg.raster_mode == "compact" else "flat"
+    obs3d_layout = ("cn" if cfg.fused_agent and not collect_trajectory
+                    else "nc")
+    if obs3d_layout == "cn":
+        state = dict(state, pcT=state["pc"].transpose(1, 2).float()
+                     .contiguous())
     pose = pose_init
     if collect_trajectory:
         _, dist = step_reward(pose, state, apply_pose=reward_apply_pose)
@@ -88,7 +109,8 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
                                              cfg.image_w, raster_dtype,
                                              raster_mode,
                                              cfg.pose_aware_observation,
-                                             cfg.obs_bearing_channels)
+                                             cfg.obs_bearing_channels,
+                                             obs3d_layout)
         r_logits, t_logits, value = agent(obs2d, obs3d)
         action_r, action_t = action_from_logits(
             r_logits, t_logits, generator, deterministic)

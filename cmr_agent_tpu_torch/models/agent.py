@@ -4,10 +4,14 @@ models/CMRAgent.py:17-144), with the action sampling and the log-prob and
 entropy of the PPO update.
 
 ``state_2d`` is NHWC ``[B, H, W, 2F]``, ``state_3d`` is ``[B, N, 5]``, or
-``[B, N, 7]`` with ``cfg.obs_bearing_channels``.
+``[B, N, 7]`` with ``cfg.obs_bearing_channels``; with ``cfg.fused_agent``
+the eval episode hands it channel-major ``[B, 5 (+2), N]`` instead, told
+apart by the channel count as in the JAX agent (``agent.py:211-216``).
 ``train()`` mode normalises with batch statistics (see :mod:`.layers`), as
 the JAX agent's ``train=True`` does in the update; rollouts run it in
-``eval()`` mode.
+``eval()`` mode, where with ``cfg.fused_agent`` the 3-D branch runs as
+four fused dense chains (JAX ``_ResDenseSplitBlock`` and
+``_ResDenseConcatBlock``, ``agent.py:61-187``).
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from .layers import BatchNorm, Conv2d, GlobalMean, Linear, ResDenseBlock
+from ..ops import kernels
+from .layers import (BatchNorm, Conv2d, GlobalMean, Linear, ResDenseBlock,
+                     fold_dense_bn)
 
 
 def _state_2d_embed(c: int, dtype) -> nn.Sequential:
@@ -34,6 +40,31 @@ def _state_2d_embed(c: int, dtype) -> nn.Sequential:
                Conv2d(c, c, 1, dtype=dtype), lrelu(),
                Conv2d(c, c, 1, dtype=dtype)]
     return nn.Sequential(*layers)
+
+
+def _fused_virtual_concat_block(blk: ResDenseBlock, feat: torch.Tensor,
+                                pooled: torch.Tensor, cn: bool
+                                ) -> torch.Tensor:
+    """``blk`` (eval mode, folded) on the virtual ``concat(feat,
+    broadcast(pooled))`` as one fused dense chain, never materialising the
+    concat: the pooled half of each input kernel folds into a per-sample
+    bias ``pooled32 @ W[f_in:] + b``, and an identity shortcut adds the
+    pooled half in the kernel (residual "identity_split"). ``feat`` is
+    ``[B,N,f]`` or, with ``cn``, ``[B,f,N]``; ``pooled [B,f]``."""
+    f_in = feat.shape[1 if cn else -1]
+    pooled32 = pooled.float()
+    w0, b0 = fold_dense_bn(blk.net[0], blk.net[1])
+    w1, b1 = fold_dense_bn(blk.net[3], blk.net[4])
+    chain = kernels.fused_dense_chain_cn if cn else kernels.fused_dense_chain
+    bias0 = pooled32 @ w0[f_in:] + b0
+    if blk.shortcut is None:
+        return chain(feat, (w0[:f_in], w1), (bias0, b1), pooled=pooled32,
+                     slopes=(0.2, None), residual="identity_split",
+                     final_slope=0.2)
+    w2, b2 = fold_dense_bn(blk.shortcut[0], blk.shortcut[1])
+    return chain(feat, (w0[:f_in], w1), (bias0, b1), w2[:f_in],
+                 pooled32 @ w2[f_in:] + b2, slopes=(0.2, None),
+                 residual="proj", final_slope=0.2)
 
 
 def _mlp_head(cin: int, hidden: int, out: int, dtype) -> nn.Sequential:
@@ -54,10 +85,10 @@ class CMRAgent(nn.Module):
         self.cfg = cfg
         self.dtype = dt
         self.state_3d_embed = nn.ModuleList([
-            ResDenseBlock(cfg.obs3d_channels, f, dt),
-            ResDenseBlock(2 * f, f, dt),
-            ResDenseBlock(2 * f, f, dt),
-            ResDenseBlock(2 * f, 2 * f, dt),
+            ResDenseBlock(cfg.obs3d_channels, f, dt, cfg.fused_agent),
+            ResDenseBlock(2 * f, f, dt, cfg.fused_agent),
+            ResDenseBlock(2 * f, f, dt, cfg.fused_agent),
+            ResDenseBlock(2 * f, 2 * f, dt, cfg.fused_agent),
         ])
         self.state_2d_embed = _state_2d_embed(2 * f, dt)
         if cfg.policy_aux_state and not cfg.obs_bearing_channels:
@@ -73,21 +104,32 @@ class CMRAgent(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         s3 = state_3d.to(self.dtype)
-        feat = self.state_3d_embed[0](s3)
+        first = self.state_3d_embed[0]
+        cn = s3.shape[-1] not in (5, 7)                            # [B, C, N]
+        if cn and not first.fusing:
+            s3, cn = s3.transpose(1, 2), False
+        pool_dim = 2 if cn else 1
+        feat = first(s3.contiguous(), cn=cn)
         for blk in self.state_3d_embed[1:]:
-            pooled = feat.amax(dim=1, keepdim=True).expand_as(feat)
-            feat = blk(torch.cat([feat, pooled], dim=-1))
-        embed_3d = feat.amax(dim=1)                                # [B, 2F]
+            pooled = feat.amax(dim=pool_dim)                       # [B, F]
+            if blk.fusing:
+                feat = _fused_virtual_concat_block(blk, feat, pooled, cn)
+            else:
+                feat = blk(torch.cat([feat, pooled[:, None, :].expand_as(
+                    feat)], dim=-1))
+        embed_3d = feat.amax(dim=pool_dim)                         # [B, 2F]
         x = self.state_2d_embed(state_2d.to(self.dtype).permute(0, 3, 1, 2))
         embed_2d = x.flatten(1)                                    # [B, 2F]
         state = torch.cat([embed_2d, embed_3d], dim=-1)
         if cfg.policy_aux_state:
             # the bearing channels are constant per sample, so any point's
             # row carries the statistic; it skips the max-pool stack
-            if s3.shape[-1] != 7:
-                raise ValueError("policy_aux_state needs state_3d [B,N,7]; "
-                                 f"got {s3.shape[-1]} channels")
-            state = torch.cat([state, s3[:, 0, 5:]], dim=-1)
+            n_ch = s3.shape[1] if cn else s3.shape[-1]
+            if n_ch != 7:
+                raise ValueError("policy_aux_state needs 7 observation "
+                                 f"channels; got {n_ch}")
+            aux = s3[:, 5:, 0] if cn else s3[:, 0, 5:]
+            state = torch.cat([state, aux], dim=-1)
         b = state.shape[0]
         r_logits = self.policy_r(state).float().reshape(
             b, cfg.degree_r, cfg.num_steps)

@@ -65,7 +65,7 @@ class IMGPCEnDecoder(nn.Module):
         self.cfg = cfg
         self.encoder = IMGPCEncoder(cfg)
         self.node_fuse_convs = nn.ModuleList(
-            ResDenseBlock(2 * f if i == 0 else f, f, dt)
+            ResDenseBlock(2 * f if i == 0 else f, f, dt, cfg.fused_geo)
             for i in range(cfg.node_fuse_res_num))
         self.img_fuse_convs = nn.ModuleList(
             ResidualBlock2D(2 * f if i == 0 else f, f, 1, dt)

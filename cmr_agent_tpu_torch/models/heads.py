@@ -27,7 +27,7 @@ class _Head(nn.Module):
         f = cfg.embed_dim
         self.kind = kind
         self.point_fuse_convs = nn.ModuleList(
-            ResDenseBlock(2 * f if i == 0 else f, f, dt)
+            ResDenseBlock(2 * f if i == 0 else f, f, dt, cfg.fused_geo)
             for i in range(cfg.pt_head_res_num))
         self.img_res_convs = nn.ModuleList(
             ResidualBlock2D(f, f, 1, dt) for _ in range(cfg.img_fuse_res_num))

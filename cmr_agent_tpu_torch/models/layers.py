@@ -21,6 +21,14 @@ bridge (:mod:`cmr_agent_tpu_torch.train.convert`) maps names one to one:
 Parameters stay f32. Every layer computes in its ``dtype`` (the config's
 compute dtype): inputs, weights and biases are cast to it, as flax does
 for ``nn.Dense(dtype=...)``.
+
+Fused eval stacks (JAX ``layers.py:66-269``): a :class:`MiniPointNet` or
+:class:`ResDenseBlock` built with ``fused=True`` runs, in ``eval()`` mode,
+as one :func:`..ops.kernels.fused_dense_chain` (or its channel-major twin)
+with each BatchNorm folded into the preceding Dense at every forward
+(:func:`fold_dense_bn`, so weight updates are seen). ``train()`` mode keeps
+the layer-by-layer modules, whose batch statistics do not fold. The
+parameter tree is the same either way.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops import kernels
 
 
 def leaky(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -162,6 +172,16 @@ class GlobalMean(nn.Module):
         return x.mean(dim=(2, 3), keepdim=True)
 
 
+def fold_dense_bn(linear: nn.Linear, bn: BatchNorm):
+    """Eval-mode BatchNorm folded into the preceding Dense, in f32 (JAX
+    ``layers.py:128-136``): ``BN(x W + b) = x (W s) + ((b - mean) s +
+    beta)`` with ``s = scale / sqrt(var + eps)``. Returns ``(W [in, out],
+    b [out])``."""
+    s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    return linear.weight.t() * s[None, :], (linear.bias - bn.running_mean) \
+        * s + bn.bias
+
+
 class DenseBN(nn.Sequential):
     """``Linear`` + ``BatchNorm`` + LeakyReLU(0.2): one layer of a
     MiniPointNet (the reference's ``layer_i`` = Conv1d, BN1d, LReLU)."""
@@ -172,25 +192,38 @@ class DenseBN(nn.Sequential):
 
 
 class MiniPointNet(nn.Module):
-    """3 x (Dense-BN-LeakyReLU(0.2)) shared point MLP (PointNN.py:96-123)."""
+    """3 x (Dense-BN-LeakyReLU(0.2)) shared point MLP (PointNN.py:96-123);
+    one fused dense chain in eval mode when built with ``fused``."""
 
-    def __init__(self, cin: int, features: int, dtype=None):
+    def __init__(self, cin: int, features: int, dtype=None,
+                 fused: bool = False):
         super().__init__()
+        self.dtype, self.fused = dtype, fused
         self.layer_1 = DenseBN(cin, features, dtype)
         self.layer_2 = DenseBN(features, features, dtype)
         self.layer_3 = DenseBN(features, features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer_3(self.layer_2(self.layer_1(x)))
+        if not self.fused or self.training:
+            return self.layer_3(self.layer_2(self.layer_1(x)))
+        ws, bs = zip(*(fold_dense_bn(layer[0], layer[1]) for layer in
+                       (self.layer_1, self.layer_2, self.layer_3)))
+        return kernels.fused_dense_chain(
+            x.to(self.dtype or x.dtype).contiguous(), ws, bs,
+            slopes=(0.2, 0.2, 0.2))
 
 
 class ResDenseBlock(nn.Module):
     """Residual pointwise block, the reference's ConvBNReLURes1D
     (PointNN.py:260-282): Dense-BN-LReLU-Dense-BN plus an identity or
-    projected (Dense-BN) shortcut, LReLU(0.2) after the sum."""
+    projected (Dense-BN) shortcut, LReLU(0.2) after the sum. Built with
+    ``fused``, eval mode runs it as one fused dense chain, on channels-last
+    ``x [B,N,C]`` or, with ``cn=True``, channel-major ``x [B,C,N]``."""
 
-    def __init__(self, cin: int, features: int, dtype=None):
+    def __init__(self, cin: int, features: int, dtype=None,
+                 fused: bool = False):
         super().__init__()
+        self.dtype, self.fused = dtype, fused
         self.net = nn.Sequential(Linear(cin, cin, dtype=dtype), BatchNorm(cin),
                                  nn.LeakyReLU(0.2),
                                  Linear(cin, features, dtype=dtype),
@@ -198,9 +231,28 @@ class ResDenseBlock(nn.Module):
         self.shortcut = (None if cin == features else nn.Sequential(
             Linear(cin, features, dtype=dtype), BatchNorm(features)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x if self.shortcut is None else self.shortcut(x)
-        return leaky(self.net(x) + s)
+    @property
+    def fusing(self) -> bool:
+        return self.fused and not self.training
+
+    def forward(self, x: torch.Tensor, cn: bool = False) -> torch.Tensor:
+        if not self.fusing:
+            if cn:
+                raise ValueError("the channel-major layout needs the fused "
+                                 "eval path")
+            s = x if self.shortcut is None else self.shortcut(x)
+            return leaky(self.net(x) + s)
+        w0, b0 = fold_dense_bn(self.net[0], self.net[1])
+        w1, b1 = fold_dense_bn(self.net[3], self.net[4])
+        rw = rb = None
+        if self.shortcut is not None:
+            rw, rb = fold_dense_bn(self.shortcut[0], self.shortcut[1])
+        chain = kernels.fused_dense_chain_cn if cn else \
+            kernels.fused_dense_chain
+        return chain(x.to(self.dtype or x.dtype).contiguous(), (w0, w1),
+                     (b0, b1), rw, rb, slopes=(0.2, None),
+                     residual="identity" if rw is None else "proj",
+                     final_slope=0.2)
 
 
 class ResidualBlock2D(nn.Module):

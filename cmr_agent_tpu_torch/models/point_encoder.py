@@ -88,12 +88,12 @@ class KnnPointTransformer(nn.Module):
 class PointEmbeddings(nn.Module):
     def __init__(self, cfg: Config, dtype=None):
         super().__init__()
-        f = cfg.embed_dim
-        self.raw_point_mlp = MiniPointNet(3, f, dtype)
+        f, fused = cfg.embed_dim, cfg.fused_geo
+        self.raw_point_mlp = MiniPointNet(3, f, dtype, fused)
         self.group_transformer_0 = GroupPointTransformer(f, dtype)
-        self.point_mlp_0 = MiniPointNet(2 * f, f, dtype)
+        self.point_mlp_0 = MiniPointNet(2 * f, f, dtype, fused)
         self.group_transformer_1 = GroupPointTransformer(f, dtype)
-        self.point_mlp_1 = MiniPointNet(2 * f, f, dtype)
+        self.point_mlp_1 = MiniPointNet(2 * f, f, dtype, fused)
         self.group_transformer_node = GroupPointTransformer(f, dtype)
         self.knn_transformers = nn.ModuleList(
             KnnPointTransformer(f, dtype) for _ in range(3))

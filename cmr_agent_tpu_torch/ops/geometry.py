@@ -13,7 +13,9 @@ PyTorch twins of the JAX package's ``ops/geometry.py`` (same names, same
 * ``angle2matrix_sxyz`` is the transforms3d-style extrinsic-xyz
   ``Rz @ Ry @ Rx`` of the cost volume's pose grid (reference
   models/IterModel.py:95-130), with ``make_se3``, ``se3_inverse`` and the
-  entangled ``transform_points`` beside it.
+  entangled ``transform_points`` beside it;
+* ``project_points_cn`` and ``frustum_mask_cn`` are the channel-major
+  ``[B, 3, N]`` twins of the fused-stack eval episode.
 """
 
 from __future__ import annotations
@@ -156,4 +158,20 @@ def frustum_mask(xyz: torch.Tensor, w: int, h: int) -> torch.Tensor:
     """In-image test on unrounded projected ``(x, y, z)``: inclusive
     ``[0, w-1] x [0, h-1]`` and ``z > 0`` (environment.py:61-65)."""
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    return (x >= 0) & (x <= (w - 1)) & (y >= 0) & (y <= (h - 1)) & (z > 0)
+
+
+def project_points_cn(pcT: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Channel-major :func:`project_points`: ``[B, 3, N] -> [B, 3, N]``
+    ``(x/z, y/z, z)`` (geometry.py:209-221)."""
+    proj = torch.einsum("bij,bjn->bin", K, pcT)
+    z = proj[:, 2:3]
+    xy = proj[:, 0:2] / torch.where(z.abs() < 1e-10, torch.full_like(z, 1e-10),
+                                    z)
+    return torch.cat([xy, z], dim=1)
+
+
+def frustum_mask_cn(projT: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """:func:`frustum_mask` on channel-major ``[B, 3, N]`` -> ``[B, N]``."""
+    x, y, z = projT[:, 0], projT[:, 1], projT[:, 2]
     return (x >= 0) & (x <= (w - 1)) & (y >= 0) & (y <= (h - 1)) & (z > 0)

@@ -24,6 +24,9 @@ wrapper                                   replaces (cmr_agent_tpu/ops/
 :func:`segment_mean_count_image`          ``segment_sum_image_fused`` (flat)
 :func:`segment_sum_shared`                ``segment_sum_fused_shared``
 :func:`mask_compact_pack`                 ``mask_compact_pack``
+:func:`segment_sum_count_image_compact`   ``segment_sum_count_image_compact``
+:func:`fused_dense_chain`                 ``fused_dense_chain``
+:func:`fused_dense_chain_cn`              ``fused_dense_chain_cn``
 ========================================  ==================================
 
 Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn` and
@@ -45,6 +48,7 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "cmr_segment_softmax_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -54,9 +58,14 @@ _SIGNATURES = {
     "cmr_segment_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _P],
-    "cmr_raster_image": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_raster_image": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_segment_sum_shared": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_mask_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cmr_raster_compact": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_dense_chain": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _F, _F, _F, _P],
+    "cmr_dense_chain_cn": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _F, _F, _F, _P],
     "cmr_error_string": [_I],
 }
 _lib: Optional[ctypes.CDLL] = None
@@ -318,11 +327,11 @@ def segment_mean_count_image_project_plain(
     return _raster_mean_count(q, scale, pix, h * w)
 
 
-def _raster_mean_count(q: torch.Tensor, scale: Optional[torch.Tensor],
-                       pix: torch.Tensor, hw: int):
+def _raster_sum_count(q: torch.Tensor, scale: Optional[torch.Tensor],
+                      pix: torch.Tensor, hw: int):
     """Shared tail of the plain rasters: ``q [B,K,F]`` (f32/bf16 summed in
     f32, int8 in exact int32 then scaled by ``scale [B,F]``) summed with a
-    ones column into pixel ``pix [B,K]`` (``hw`` = dropped) -> ``(means
+    ones column into pixel ``pix [B,K]`` (``hw`` = dropped) -> ``(sums
     [B,hw,F], counts [B,hw])``."""
     b, k, f = q.shape
     acc_dtype = torch.int32 if scale is not None else torch.float32
@@ -335,6 +344,13 @@ def _raster_mean_count(q: torch.Tensor, scale: Optional[torch.Tensor],
     sums, cnt = acc[..., :f].float(), acc[..., f].float()
     if scale is not None:
         sums = sums * scale[:, None, :]
+    return sums, cnt
+
+
+def _raster_mean_count(q: torch.Tensor, scale: Optional[torch.Tensor],
+                       pix: torch.Tensor, hw: int):
+    """:func:`_raster_sum_count` -> ``(means [B,hw,F], counts [B,hw])``."""
+    sums, cnt = _raster_sum_count(q, scale, pix, hw)
     return sums / cnt.clamp_min(1.0)[..., None], cnt
 
 
@@ -467,11 +483,29 @@ segment_softmax_attend_backward.launches = 0
 # 7. pixel-id observation raster (mean + count per pixel)
 # --------------------------------------------------------------------------
 
-def _image_operand(data: torch.Tensor, compute_dtype) -> torch.Tensor:
-    if compute_dtype == torch.int8:
-        raise ValueError("the pixel-id raster has no int8 mode (training "
-                         "episodes raster in f32 or bf16)")
-    return _operands(data, compute_dtype)[0]
+def _pixel_id_raster(data, ids, h: int, w: int, compute_dtype, fn=None):
+    """The pixel-id rasters' common part: plain (``fn`` None) ``(sums,
+    counts)``, or the C entry point ``fn`` launched -> its ``(means or
+    sums, counts)``. Ids outside ``[0, h*w)`` are routed out."""
+    hw = h * w
+    q, scale = _operands(data, compute_dtype)
+    if fn is None:
+        pix = torch.where((ids >= 0) & (ids < hw), ids,
+                          torch.full_like(ids, hw))
+        return _raster_sum_count(q, scale, pix, hw)
+    b, k, f = data.shape
+    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
+    _require("ids", ids, (torch.int32,), (b, k))
+    q = q.contiguous()
+    kind = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[q.dtype]
+    acc = torch.zeros((b, hw, f + 1),
+                      dtype=torch.int32 if kind == 2 else torch.float32,
+                      device=data.device)
+    out = torch.empty((b, hw, f), device=data.device)
+    cnt = torch.empty((b, hw), device=data.device)
+    _launch(fn, _ptr(q), kind, _ptr(ids), _ptr(scale), _ptr(acc), _ptr(out),
+            _ptr(cnt), b, k, f, hw, _stream())
+    return out, cnt
 
 
 def segment_mean_count_image_plain(
@@ -480,33 +514,23 @@ def segment_mean_count_image_plain(
     """Pixel-id raster -> ``(means [B,h*w,F], counts [B,h*w])`` f32.
 
     ``data [B,K,F]``; ``ids [B,K]`` pixel ``y*w + x`` per row, any id
-    outside ``[0, h*w)`` routed out. ``compute_dtype`` None/f32 or bf16
-    (rows rounded to bf16 once, f32 sums)."""
-    hw = h * w
-    pix = torch.where((ids >= 0) & (ids < hw), ids, torch.full_like(ids, hw))
-    return _raster_mean_count(_image_operand(data, compute_dtype), None, pix,
-                              hw)
+    outside ``[0, h*w)`` routed out. ``compute_dtype`` None/f32, bf16
+    (rows rounded to bf16 once, f32 sums) or int8 (:func:`quantize_int8`
+    over all K rows, exact integer sums, then scaled)."""
+    sums, cnt = _pixel_id_raster(data, ids, h, w, compute_dtype)
+    return sums / cnt.clamp_min(1.0)[..., None], cnt
 
 
 def segment_mean_count_image(
         data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
         compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper of :func:`segment_mean_count_image_plain`: f32 or
-    bf16 ``data``, int32 ``ids``."""
+    bf16 ``data``, int32 ``ids``; int8 accumulates in exact int32."""
     if not _on_cuda(data, ids):
         return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
-    b, k, f = data.shape
-    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
-    _require("ids", ids, (torch.int32,), (b, k))
-    q = _image_operand(data, compute_dtype).contiguous()
-    kind = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
-    acc = torch.zeros((b, h * w, f + 1), device=data.device)
-    means = torch.empty((b, h * w, f), device=data.device)
-    cnt = torch.empty((b, h * w), device=data.device)
-    _launch("cmr_raster_image", _ptr(q), kind, _ptr(ids), _ptr(acc),
-            _ptr(means), _ptr(cnt), b, k, f, h * w, _stream())
+    out = _pixel_id_raster(data, ids, h, w, compute_dtype, "cmr_raster_image")
     segment_mean_count_image.launches += 1
-    return means, cnt
+    return out
 
 
 segment_mean_count_image.launches = 0
@@ -619,6 +643,214 @@ mask_compact_pack.launches = 0
 
 
 # --------------------------------------------------------------------------
+# 10. compacting pixel-id raster (the "compact" eval episode's raster)
+# --------------------------------------------------------------------------
+
+def segment_sum_count_image_compact_plain(
+        data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
+        compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-id raster -> ``(sums [B,h*w,F], counts [B,h*w])`` f32 over
+    every row whose id lies in ``[0, h*w)``, none dropped. ``data [B,N,F]``
+    in any order (the kernel packs each tile's valid rows itself); ``ids
+    [B,N]``. ``compute_dtype`` None/f32, bf16 (rows rounded once, f32 sums)
+    or int8 (:func:`quantize_int8` over all N rows, exact integer sums,
+    then scaled), so that ``sums / max(counts, 1)`` is the "flat" raster's
+    mean in every dtype. (The JAX kernel's int8 mode casts without
+    quantising; see ROADMAP C.)"""
+    return _pixel_id_raster(data, ids, h, w, compute_dtype)
+
+
+def segment_sum_count_image_compact(
+        data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
+        compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of :func:`segment_sum_count_image_compact_plain`:
+    f32 or bf16 ``data``, int32 ``ids``. One block per 512-row tile packs
+    the tile's valid rows (warp ballots) and adds them with atomics; a
+    tile without a valid id returns at once."""
+    if not _on_cuda(data, ids):
+        return segment_sum_count_image_compact_plain(data, ids, h, w,
+                                                     compute_dtype)
+    out = _pixel_id_raster(data, ids, h, w, compute_dtype,
+                           "cmr_raster_compact")
+    segment_sum_count_image_compact.launches += 1
+    return out
+
+
+segment_sum_count_image_compact.launches = 0
+
+
+# --------------------------------------------------------------------------
+# 11. fused dense chain, row-major [B,N,C] and channel-major [B,C,N]
+# --------------------------------------------------------------------------
+
+CHAIN_MAX_CHANNELS = 128
+CHAIN_MAX_LAYERS = 3
+_RESIDUALS = ("none", "identity", "proj", "identity_split")
+
+
+def _leaky(x: torch.Tensor, slope: Optional[float]) -> torch.Tensor:
+    return x if slope is None else torch.where(x >= 0, x, x * slope)
+
+
+def _batch_bias(bias: torch.Tensor, b: int) -> torch.Tensor:
+    """A ``[C]`` or per-batch ``[B,C]`` bias as ``[B,C]`` f32."""
+    return bias.float().expand(b, bias.shape[-1])
+
+
+def _check_chain(c0: int, weights, res_weight, pooled, slopes,
+                 residual: str) -> None:
+    if residual not in _RESIDUALS:
+        raise ValueError(f"residual must be one of {_RESIDUALS}, got "
+                         f"{residual!r}")
+    if len(slopes) != len(weights):
+        raise ValueError("one slope (or None) per layer")
+    c_out = weights[-1].shape[-1]
+    if residual == "identity" and c0 != c_out:
+        raise ValueError(f"identity residual needs C_in == C_out, got "
+                         f"{c0} vs {c_out}")
+    if residual == "identity_split" and (
+            pooled is None or c0 + pooled.shape[-1] != c_out):
+        raise ValueError("identity_split needs pooled with C_in + P == C_out")
+    if residual == "proj" and res_weight is None:
+        raise ValueError("proj residual needs res_weight and res_bias")
+
+
+def fused_dense_chain_plain(x: torch.Tensor, weights, biases,
+                            res_weight=None, res_bias=None, pooled=None,
+                            slopes=(), residual: str = "none",
+                            final_slope=None, out_max: bool = False):
+    """``L`` pointwise layers over ``x [B,N,C0]`` (f32 or bf16):
+    ``acc_i = leaky(h_{i-1} @ W_i + b_i, slopes[i])`` with the products
+    of ``x.dtype`` values summed in f32 and ``h_i = acc_i`` rounded to
+    ``x.dtype`` (``slopes[i] = None`` skips the activation); then the
+    residual added to the last ``acc`` in f32 — "identity" ``x``, "proj"
+    ``x @ res_weight + res_bias``, "identity_split" the virtual
+    ``concat(x, broadcast(pooled))`` — then ``final_slope`` and one
+    rounding to ``x.dtype``. ``W_i [C_{i-1}, C_i]`` are cast to
+    ``x.dtype``; biases are ``[C]`` or per-batch ``[B,C]``, added in f32.
+    With ``out_max`` also returns the per-(sample, channel) max over the N
+    rows of the final f32 ``acc``, rounded to ``x.dtype``, ``[B,C]``."""
+    _check_chain(x.shape[-1], weights, res_weight, pooled, slopes, residual)
+    b, dt = x.shape[0], x.dtype
+    h, acc = x, None
+    for w, bias, slope in zip(weights, biases, slopes):
+        acc = h.float() @ w.to(dt).float()
+        acc = _leaky(acc + _batch_bias(bias, b)[:, None, :], slope)
+        h = acc.to(dt)
+    if residual == "proj":
+        acc = acc + (x.float() @ res_weight.to(dt).float()
+                     + _batch_bias(res_bias, b)[:, None, :])
+    elif residual == "identity":
+        acc = acc + x.float()
+    elif residual == "identity_split":
+        p = pooled.to(dt).float()[:, None, :].expand(b, x.shape[1], -1)
+        acc = acc + torch.cat([x.float(), p], dim=-1)
+    acc = _leaky(acc, final_slope)
+    out = acc.to(dt)
+    return (out, acc.amax(dim=1).to(dt)) if out_max else out
+
+
+def fused_dense_chain_cn_plain(x: torch.Tensor, weights, biases,
+                               res_weight=None, res_bias=None, pooled=None,
+                               slopes=(), residual: str = "none",
+                               final_slope=None, out_max: bool = False):
+    """:func:`fused_dense_chain_plain` on channel-major ``x [B,C0,N]`` ->
+    ``[B,C,N]`` (``out_max`` still ``[B,C]``); the same arithmetic per
+    point."""
+    res = fused_dense_chain_plain(x.transpose(1, 2), weights, biases,
+                                  res_weight, res_bias, pooled, slopes,
+                                  residual, final_slope, out_max)
+    if out_max:
+        return res[0].transpose(1, 2).contiguous(), res[1]
+    return res.transpose(1, 2).contiguous()
+
+
+def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
+                 slopes, residual, final_slope, out_max):
+    """Launch the chain kernel of ``csrc/dense_chain.cu`` (layout ``cn``).
+    The weights (cast to ``x.dtype``) and the f32 ``[B, C]`` bias rows go
+    to the kernel packed, each in one buffer; a slope of None is passed as
+    1 (LeakyReLU with slope 1 is the identity, bit for bit)."""
+    b = x.shape[0]
+    c0, n = (x.shape[1], x.shape[2]) if cn else (x.shape[2], x.shape[1])
+    _check_chain(c0, weights, res_weight, pooled, slopes, residual)
+    _require("x", x, (torch.float32, torch.bfloat16), x.shape)
+    dims = [c0] + [w.shape[-1] for w in weights]
+    if not 1 <= len(weights) <= CHAIN_MAX_LAYERS or \
+            max(dims) > CHAIN_MAX_CHANNELS:
+        raise ValueError(f"the chain kernel takes 1-{CHAIN_MAX_LAYERS} "
+                         f"layers of at most {CHAIN_MAX_CHANNELS} channels; "
+                         f"got {dims}")
+    for i, w in enumerate(weights):
+        if tuple(w.shape) != (dims[i], dims[i + 1]):
+            raise ValueError(f"layer {i}: weight {tuple(w.shape)}, expected "
+                             f"{(dims[i], dims[i + 1])}")
+    dt, proj = x.dtype, residual == "proj"
+    mats = list(weights) + ([res_weight] if proj else [])
+    wbuf = torch.cat([m.to(dt).reshape(-1) for m in mats]).contiguous()
+    rows = list(biases) + ([res_bias] if proj else [])
+    bbuf = torch.cat([_batch_bias(v, b) for v in rows], dim=1).contiguous()
+    prow = (pooled.to(dt).float().contiguous()
+            if residual == "identity_split" else None)
+    c_out = dims[-1]
+    out = torch.empty((b, c_out, n) if cn else (b, n, c_out), dtype=dt,
+                      device=x.device)
+    mx = (torch.full((b, c_out), float("-inf"), device=x.device)
+          if out_max else None)
+    dims4 = dims + [0] * (CHAIN_MAX_LAYERS + 1 - len(dims))
+    s = [1.0 if v is None else float(v) for v in slopes]
+    s += [1.0] * (CHAIN_MAX_LAYERS - len(s))
+    _launch("cmr_dense_chain_cn" if cn else "cmr_dense_chain", _ptr(x),
+            0 if dt == torch.float32 else 1, _ptr(wbuf), _ptr(bbuf),
+            _ptr(prow), _ptr(out), _ptr(mx), b, n, len(weights), *dims4,
+            _RESIDUALS.index(residual), *s,
+            1.0 if final_slope is None else float(final_slope), _stream())
+    return (out, mx.to(dt)) if out_max else out
+
+
+def fused_dense_chain(x: torch.Tensor, weights, biases, res_weight=None,
+                      res_bias=None, pooled=None, slopes=(),
+                      residual: str = "none", final_slope=None,
+                      out_max: bool = False):
+    """Kernel wrapper of :func:`fused_dense_chain_plain`: f32 or bf16
+    ``x [B,N,C0]``, 1-3 layers, every width at most 128."""
+    args = (x, weights, biases, res_weight, res_bias, pooled, slopes,
+            residual, final_slope, out_max)
+    if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight,
+                                    res_bias, pooled)):
+        return fused_dense_chain_plain(*args)
+    out = _dense_chain(False, *args)
+    fused_dense_chain.launches += 1
+    return out
+
+
+fused_dense_chain.launches = 0
+
+
+def fused_dense_chain_cn(x: torch.Tensor, weights, biases, res_weight=None,
+                         res_bias=None, pooled=None, slopes=(),
+                         residual: str = "none", final_slope=None,
+                         out_max: bool = False):
+    """Kernel wrapper of :func:`fused_dense_chain_cn_plain`: f32 or bf16
+    ``x [B,C0,N]``, 1-3 layers, every width at most 128."""
+    args = (x, weights, biases, res_weight, res_bias, pooled, slopes,
+            residual, final_slope, out_max)
+    if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight,
+                                    res_bias, pooled)):
+        return fused_dense_chain_cn_plain(*args)
+    out = _dense_chain(True, *args)
+    fused_dense_chain_cn.launches += 1
+    return out
+
+
+fused_dense_chain_cn.launches = 0
+
+
+def _chain_tensors(x, weights, biases, *rest):
+    return [x, *weights, *biases, *(t for t in rest if t is not None)]
+
+
+# --------------------------------------------------------------------------
 # autograd Functions (the JAX package's custom_vjp rules)
 # --------------------------------------------------------------------------
 
@@ -685,7 +917,9 @@ class SegmentMeanCountImageFn(torch.autograd.Function):
 WRAPPERS = (segment_softmax_attend, gather_rows, knn,
             segment_mean_count_image_project, segment_sum,
             segment_softmax_attend_backward, segment_mean_count_image,
-            segment_sum_shared, mask_compact_pack)
+            segment_sum_shared, mask_compact_pack,
+            segment_sum_count_image_compact, fused_dense_chain,
+            fused_dense_chain_cn)
 PLAIN = {
     "segment_softmax_attend": segment_softmax_attend_plain,
     "gather_rows": gather_rows_plain,
@@ -696,6 +930,9 @@ PLAIN = {
     "segment_mean_count_image": segment_mean_count_image_plain,
     "segment_sum_shared": segment_sum_shared_plain,
     "mask_compact_pack": mask_compact_pack_plain,
+    "segment_sum_count_image_compact": segment_sum_count_image_compact_plain,
+    "fused_dense_chain": fused_dense_chain_plain,
+    "fused_dense_chain_cn": fused_dense_chain_cn_plain,
 }
 
 

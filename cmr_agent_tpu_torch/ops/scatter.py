@@ -21,15 +21,26 @@ def batched_segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
 
 def scatter_mean_image(feat: torch.Tensor, pixel_ids: torch.Tensor,
                        valid: torch.Tensor, h: int, w: int,
-                       compute_dtype=None) -> torch.Tensor:
+                       compute_dtype=None, mode: str = "flat"
+                       ) -> torch.Tensor:
     """Rasterise per-point features into an ``[B, h, w, F]`` mean image
-    (0 where no point lands), the JAX package's ``scatter_mean_image`` in
-    its flat mode (``scatter.py:134-188``): invalid points go to id
-    ``h*w`` and are routed out by the pixel-id raster kernel.
-    ``compute_dtype`` None/f32 or bf16 (one rounding of the inputs, f32
-    sums)."""
+    (0 where no point lands), the JAX package's ``scatter_mean_image``
+    (``scatter.py:134-188``): invalid points go to id ``h*w`` and are
+    routed out. ``mode`` "flat" is the pixel-id raster kernel (with its
+    gradient); "compact" the compacting raster kernel, for a whole,
+    unordered cloud (no gradient: eval episodes only). ``compute_dtype``
+    None/f32, bf16 (one rounding of the inputs, f32 sums) or int8 (absmax
+    quantised, exact integer sums)."""
     ids = torch.where(valid, pixel_ids,
                       torch.full_like(pixel_ids, h * w)).to(torch.int32)
-    means, _ = kernels.SegmentMeanCountImageFn.apply(
-        feat, ids.contiguous(), h, w, compute_dtype)
+    ids = ids.contiguous()
+    if mode == "compact":
+        sums, counts = kernels.segment_sum_count_image_compact(
+            feat.contiguous(), ids, h, w, compute_dtype)
+        means = sums / counts.clamp_min(1.0)[..., None]
+    elif mode == "flat":
+        means, _ = kernels.SegmentMeanCountImageFn.apply(
+            feat.contiguous(), ids, h, w, compute_dtype)
+    else:
+        raise ValueError(f"unknown raster mode {mode!r}")
     return means.reshape(feat.shape[0], h, w, feat.shape[-1])

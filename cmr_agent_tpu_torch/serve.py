@@ -114,8 +114,10 @@ def build_workload(cfg: Config, batch_size: int, device="cuda", seed: int = 0
 
     ``batch`` holds the tensors the path reads, made by the synthetic
     dataset from ``seed``; ``model`` and ``agent`` carry random weights from
-    a ``torch.Generator`` seeded with ``seed`` and are in eval mode;
-    ``episode(batch)`` returns the final poses ``[B, 4, 4]``.
+    a ``torch.Generator`` seeded with ``seed`` (the same for every
+    ``cfg.fused_stacks``: fusion changes the compute, not the parameters)
+    and are in eval mode; ``episode(batch)`` returns the final poses
+    ``[B, 4, 4]``, through the raster of ``cfg.raster_mode``.
     """
     dev = resolve_device(device)
     batch = synthetic_batch(cfg, batch_size, dev, seed)
@@ -165,6 +167,17 @@ def spread_random_weights_(geo: MultiHeadModel, iter_model: IterModel,
         for m in iter_model.modules():
             if isinstance(m, nn.Conv2d):
                 m.weight.mul_(TOWER_GAIN)
+    centre_overlap_head_(geo, batch)
+
+
+def centre_overlap_head_(geo: MultiHeadModel,
+                         batch: Dict[str, torch.Tensor]) -> None:
+    """Step 2 of :func:`spread_random_weights_` alone, in place: the last
+    layer of the per-point overlap head times ``OVERLAP_HEAD_GAIN``, its
+    bias shifted so that the median point of ``batch`` sits on the
+    decision threshold (about half the cloud is then predicted overlap,
+    where a fresh head may predict all of it or none)."""
+    with torch.no_grad():
         logits = geo(batch)["pc_overlap_logits"].float()
         median = torch.quantile((logits[..., 1] - logits[..., 0]).flatten(),
                                 0.5)

@@ -107,7 +107,8 @@ bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "orbax", "cmr_agent_tpu")]
 assert not bad, bad
 for name in ("models.cost_volume", "train.train_iter", "env.environment",
-             "serve", "ops.kernels"):
+             "env.episode", "models.layers", "models.agent", "ops.geometry",
+             "ops.scatter", "serve", "ops.kernels"):
     assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))
 """

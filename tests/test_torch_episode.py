@@ -114,16 +114,21 @@ def test_build_workload_defaults_to_cuda():
     dict(is_6_dof=True), dict(raster_mode="pack"),
     dict(raster_mode="compact"), dict(obs3d_source="compact"),
     dict(pose_aware_observation=True), dict(obs_bearing_channels=True),
-    dict(policy_aux_state=True), dict(bearing_init=True)])
+    dict(policy_aux_state=True), dict(bearing_init=True),
+    dict(fused_stacks="all"), dict(fused_stacks="agent"),
+    dict(fused_stacks="1")])
 def test_config_refuses_settings_the_port_does_not_serve(setting,
                                                          monkeypatch):
     """A JAX serving setting the port has no path for fails at config time
     instead of running the megatopk 4-DoF episode in its place; a setting
-    it serves is accepted and reaches the episode."""
+    it serves is accepted and reaches the episode: "pack" one mask-pack
+    launch, "compact" one compacting raster per step and no pack, fused
+    stacks 4 channel-major chains per step (and, under "all", the geo
+    model's 12 row-major chains)."""
     refused = {"is_6_dof": TypeError, "obs3d_source": TypeError,
-               "raster_mode": ValueError}
+               "fused_stacks": ValueError}
     (name, value), = setting.items()
-    if name in refused and value != "pack":
+    if name in refused and value not in ("all", "agent"):
         with pytest.raises(refused[name]):
             tiny_config(**setting)
         return
@@ -131,11 +136,11 @@ def test_config_refuses_settings_the_port_does_not_serve(setting,
         setting = dict(setting, obs_bearing_channels=True)
     cfg = tiny_config(raster_topk=1024, action_num=2, **setting)
     batch, model, agent, episode = serve.build_workload(cfg, 2, device="cpu")
-    seen = {"obs3d": [], "packs": 0, "bearing_inits": 0}
+    seen = {"obs3d": [], "packs": 0, "bearing_inits": 0, "compacts": 0,
+            "chains": 0, "chains_cn": 0}
     agent.register_forward_pre_hook(
         lambda _m, args: seen["obs3d"].append(args[1]))
     from cmr_agent_tpu_torch.ops import kernels
-    pack, bearing = kernels.mask_compact_pack, serve.bearing_init_pose
 
     def counting(key, fn):
         def call(*a, **kw):
@@ -143,17 +148,28 @@ def test_config_refuses_settings_the_port_does_not_serve(setting,
             return fn(*a, **kw)
         return call
 
-    monkeypatch.setattr(kernels, "mask_compact_pack", counting("packs", pack))
-    monkeypatch.setattr(serve, "bearing_init_pose",
-                        counting("bearing_inits", bearing))
+    for key, obj, attr in (
+            ("packs", kernels, "mask_compact_pack"),
+            ("compacts", kernels, "segment_sum_count_image_compact"),
+            ("chains", kernels, "fused_dense_chain"),
+            ("chains_cn", kernels, "fused_dense_chain_cn"),
+            ("bearing_inits", serve, "bearing_init_pose")):
+        monkeypatch.setattr(obj, attr, counting(key, getattr(obj, attr)))
     final = episode(batch)
     assert final.shape == (2, 4, 4) and torch.isfinite(final).all()
     first, second = seen["obs3d"]
-    assert seen["packs"] == (1 if name == "raster_mode" else 0)
+    fused_agent = name == "fused_stacks"
+    assert seen["packs"] == (1 if value == "pack" else 0)
+    assert seen["compacts"] == (cfg.action_num if value == "compact" else 0)
+    assert seen["chains_cn"] == (4 * cfg.action_num if fused_agent else 0)
+    assert seen["chains"] == (12 if value == "all" else 0)
     assert seen["bearing_inits"] == (1 if name == "bearing_init" else 0)
-    assert first.shape[-1] == (7 if cfg.obs_bearing_channels else 5)
+    # the fused agent reads the channel-major [B, C, N] observation
+    channels = first.shape[1] if fused_agent else first.shape[-1]
+    assert channels == (7 if cfg.obs_bearing_channels else 5)
+    xyz = (lambda o: o[:, :3]) if fused_agent else (lambda o: o[..., :3])
     # the static cloud is the same at every step; the moved one is not
-    static = torch.equal(first[..., :3], second[..., :3])
+    static = torch.equal(xyz(first), xyz(second))
     assert static == (name != "pose_aware_observation")
     assert agent.policy_r[0].in_features == 4 * cfg.embed_dim + (
         2 if name == "policy_aux_state" else 0)

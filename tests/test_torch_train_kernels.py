@@ -149,6 +149,20 @@ def test_segment_mean_count_image_plain_and_vjp_match_jax(mode):
 
 
 def test_image_raster_refuses_int8():
+    """The pixel-id raster serves int8 operands (the bf16 eval episodes'
+    "flat" and "topk" rasters): on a valid-first layout its counts equal
+    the Pallas kernel's in int8 and its means agree within 1e-5 (one absmax
+    quantisation, exact integer sums in both). A compute dtype it has no
+    mode for is refused."""
     data, ids, h, w = _image_inputs(6)
-    with pytest.raises(ValueError, match="int8"):
-        kernels.segment_mean_count_image(_t(data), _t(ids), h, w, torch.int8)
+    got_m, got_c = kernels.segment_mean_count_image(_t(data), _t(ids), h, w,
+                                                    torch.int8)
+    want_m, want_c = pk.segment_mean_count_image_fused(
+        jnp.asarray(data), jnp.asarray(ids), h, w, tile=128, factored=False,
+        compute_dtype=jnp.int8, interpret=True)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="float16"):
+        kernels.segment_mean_count_image(_t(data), _t(ids), h, w,
+                                         torch.float16)
