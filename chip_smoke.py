@@ -73,7 +73,17 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     int8 pixel-id raster on the inputs of the f32 "compact" episode's
     busiest step, then one eval episode each under ``raster_mode``
     "compact" (f32, bf16 + int8), "flat" and "topk" (bf16 + int8) against
-    its plain twin on the same perceived state.
+    its plain twin on the same perceived state;
+15. the factored image raster (f32, bf16) on the raster probe's rows and
+    on a training episode's ids against its plain version, its backward
+    against autograd of the plain version, with the same timings and
+    ``index_add_`` as the library call; then the measuring tools through
+    their ``main``: ``tools.raster_probe`` (every row in the frame, a
+    quarter valid-first, a quarter scattered; the factored kernel's
+    launches are counted over these three runs), ``tools.episode_trace``
+    (bf16, 3 episodes) and ``tools.train_probe`` (10 steps per variant),
+    each JSON on a ``[raster_probe]``, ``[episode_trace]`` or
+    ``[train_probe]`` line.
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -89,6 +99,8 @@ import subprocess
 import sys
 import time
 
+from cmr_agent_tpu_torch.utils.profiling import cuda_ms, profile_device
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor-core)
 # rate; the bound of a kernel is the larger of bytes/BW and ops/rate.
 HBM_BYTES_PER_S = 3.35e12
@@ -101,23 +113,6 @@ RASTER_K, IMG_H, IMG_W = 20480, 40, 128
 def line(tag: str, **fields) -> None:
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{tag}] {body}", flush=True)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` per call over ``iters`` calls (CUDA
-    events, after 3 warm-up calls)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def rand_factory(torch, seed: int, dev):
@@ -392,7 +387,8 @@ PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
                      "segment_sum_kernel", "softmax_backward_kernel",
                      "raster_image_kernel", "segment_sum_shared_kernel",
                      "mask_count_kernel", "mask_pack_kernel",
-                     "dense_chain_kernel", "raster_compact_kernel")
+                     "dense_chain_kernel", "raster_compact_kernel",
+                     "raster_factored_kernel")
 
 
 def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
@@ -402,30 +398,13 @@ def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
 
 
 def profile_call(torch, fn, unprofiled_ms=None, **tags) -> None:
-    """Device time of one call of ``fn`` by kernel (torch.profiler, CUPTI):
-    the device's busy share of the wall time and the port kernels' share.
-    The profiler slows the host's launches, so where the caller timed the
-    same call without it (``unprofiled_ms``) the share of that time is
-    printed too. User annotations (``Optimizer.step#Adam.step``) span
-    kernels already counted and are left out."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-    per_name = {}
-    for e in prof.key_averages():     # device-side rows: kernels, copies
-        if (getattr(e, "device_type", None) != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.key.startswith("Optimizer.")):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        per_name[e.key] = per_name.get(e.key, 0.0) + dev_us / 1e3
+    """Device time of one call of ``fn`` by kernel (``profile_device``:
+    torch.profiler, CUPTI): the device's busy share of the wall time and
+    the port kernels' share. The profiler slows the host's launches, so
+    where the caller timed the same call without it (``unprofiled_ms``)
+    the share of that time is printed too."""
+    rows, wall_ms = profile_device(fn)
+    per_name = {k: ms for k, (ms, _) in rows.items()}
     device_ms = sum(per_name.values())
     ours = sum(ms for k, ms in per_name.items()
                if any(n in k for n in PORT_KERNEL_NAMES))
@@ -1549,6 +1528,110 @@ def run_raster_episodes(torch, kernels, serve, kitti_config):
             counts_by[("flat", "bfloat16")])
 
 
+def check_factored_kernel(torch, kernels, dev):
+    """Phase 15, kernel: the factored raster (6b) in f32 and bf16, on
+    tools/raster_probe.py's rows (every row in the frame) and on a training
+    episode's ids (valid-first, a third of the prefix outside the frame, a
+    tail routed out by ``h*w``, above it and by -1), each with the count
+    column appended, against its plain version; its backward (the row
+    gather) against autograd of the plain version. Returns the summary row
+    (f32, raster_probe's rows)."""
+    from cmr_agent_tpu_torch.tools import raster_probe
+    gen, randn, _ = rand_factory(torch, 5150, dev)
+    hw = IMG_H * IMG_W
+    feat, probe_ids = raster_probe.make_inputs(B, RASTER_K, F, IMG_H, IMG_W,
+                                               1.0, False, dev)
+    ones = torch.ones(B, RASTER_K, 1, device=dev)
+    aug = torch.cat([feat, ones], -1).contiguous()
+    counts = torch.randint(RASTER_K // 4, RASTER_K - 64, (B, 1),
+                           generator=gen)
+    row = torch.arange(RASTER_K)[None, :]
+    lands = (row < counts) & (torch.rand(B, RASTER_K, generator=gen) > 1 / 3)
+    train_ids = torch.where(lands, torch.randint(0, hw, (B, RASTER_K),
+                                                 generator=gen),
+                            torch.full((B, RASTER_K), hw))
+    train_ids[:, -64:-32] = hw + 5
+    train_ids[:, -32:] = -1
+    train_ids = train_ids.to(torch.int32).to(dev)
+    g = randn(B, hw, F + 1)
+    rows = {}
+    for layout, ids in (("probe", probe_ids), ("train", train_ids)):
+        landed = int(((ids >= 0) & (ids < hw)).sum().item())
+        for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+            data = aug if dt is None else aug.to(dt)
+            got = kernels.segment_sum_image(data, ids, IMG_H, IMG_W, dt)
+            want = kernels.segment_sum_image_plain(data, ids, IMG_H, IMG_W, dt)
+            assert torch.equal(got[..., -1], want[..., -1]), (layout, mode)
+            assert int(got[..., -1].sum().item()) == landed, (layout, mode)
+            # f32 atomics add in another order
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            d = data.detach().clone().requires_grad_()
+            d_p = data.detach().clone().requires_grad_()
+            kernels.SegmentSumImageFn.apply(d, ids, IMG_H, IMG_W,
+                                            dt).backward(g)
+            kernels.segment_sum_image_plain(d_p, ids, IMG_H, IMG_W,
+                                            dt).backward(g)
+            assert torch.equal(d.grad, d_p.grad), (layout, mode)
+            library_ms = None
+            if dt is None:
+                # the one library call: index_add_ of the flattened rows
+                # into [B * (h*w + 1), F + 1] (a spill row per sample)
+                pix = torch.where((ids >= 0) & (ids < hw), ids, hw).long()
+                flat = (pix + (hw + 1) * torch.arange(
+                    B, device=dev)[:, None]).reshape(-1)
+                rows2d = data.reshape(B * RASTER_K, F + 1)
+                library_ms = cuda_ms(lambda: torch.zeros(
+                    B * (hw + 1), F + 1, device=dev).index_add_(
+                        0, flat, rows2d), 20)
+            elt = data.element_size()
+            r = dict(
+                max_abs_err=(got - want).abs().max().item(),
+                tol="counts exact; sums rtol 1e-5 atol 1e-5 (f32 atomics "
+                    "reorder sums); VJP vs autograd exact",
+                shape=f"[{B},{RASTER_K},{F + 1}] {mode} -> {IMG_H}x{IMG_W}, "
+                      f"{landed} rows land",
+                ms=cuda_ms(lambda: kernels.segment_sum_image(
+                    data, ids, IMG_H, IMG_W, dt), 50),
+                plain_ms=cuda_ms(lambda: kernels.segment_sum_image_plain(
+                    data, ids, IMG_H, IMG_W, dt), 10),
+                library_ms=library_ms,
+                bound=bound(B * RASTER_K * 4 + landed * (F + 1) * elt
+                            + B * hw * (F + 1) * 4, (F + 1.0) * landed))
+            print_rows({f"segment_sum_image_factored[{layout},{mode}]": r})
+            rows.setdefault("segment_sum_image_factored", r)
+    return rows["segment_sum_image_factored"]
+
+
+def run_tools(torch, kernels):
+    """Phase 15, tools: ``raster_probe`` with every row in the frame, with a
+    quarter valid-first and with a quarter scattered, then
+    ``episode_trace`` (bf16, 3 episodes) and ``train_probe`` (10 steps per
+    variant), each through its ``main`` with its JSON on a line of its own.
+    Returns the factored kernel's launches over the three probes."""
+    import io
+    from cmr_agent_tpu_torch.tools import (episode_trace, raster_probe,
+                                           train_probe)
+
+    def run(tag, main, argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = main(argv)
+        print(f"[{tag}] {json.dumps(out)}", flush=True)
+        return out
+
+    kernels.reset_launch_counts()
+    for argv in ([], ["--valid-frac", "0.25"],
+                 ["--valid-frac", "0.25", "--scattered"]):
+        out = run("raster_probe", raster_probe.main, argv)
+        assert all(v > 0 for k, v in out.items() if k.endswith("_ms")), out
+    launches = kernels.segment_sum_image.launches
+    out = run("episode_trace", episode_trace.main,
+              ["--dtype", "bfloat16", "--iters", "3", "--top", "12"])
+    assert out["total_device_ms_per_iter"] > 0 and out["top"], out
+    out = run("train_probe", train_probe.main, ["--steps", "10"])
+    assert all(v > 0 for v in out["ms_per_step"].values()), out
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1609,10 +1692,17 @@ def main() -> int:
         torch, kernels, serve, kitti_config)
     rows.update(raster_rows)
     line("fourth_slice_phases", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rows["segment_sum_image_factored"] = check_factored_kernel(torch, kernels,
+                                                               dev)
+    factored_launches = run_tools(torch, kernels)
+    line("fifth_slice_phases", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode,
     # one geo train step, the agent training run, one composed request, the
     # "pack" episode, the fused ("all", f32) episode, the "compact" (f32)
-    # or the "flat" (bf16 + int8) episode
+    # or the "flat" (bf16 + int8) episode, the three raster probes
     counts.update({k: geo_counts[k] for k in ("segment_sum",
                                                "segment_softmax_attend_backward")})
     counts["segment_mean_count_image"] = agent_counts["segment_mean_count_image"]
@@ -1624,6 +1714,7 @@ def main() -> int:
         "segment_sum_count_image_compact"]
     counts["segment_mean_count_image_int8"] = flat_counts[
         "segment_mean_count_image"]
+    counts["segment_sum_image_factored"] = factored_launches
 
     sources = {
         "segment_softmax_attend": ("segment_softmax.cu", 126),
@@ -1640,6 +1731,7 @@ def main() -> int:
         "fused_dense_chain_cn": ("dense_chain.cu", 1347),
         "segment_sum_count_image_compact": ("raster_compact.cu", 857),
         "segment_mean_count_image_int8": ("raster_image.cu", 685),
+        "segment_sum_image_factored": ("raster_factored.cu", 685),
     }
     summary = {"kernels": [
         {"name": name, "route": "cuda",

@@ -27,14 +27,17 @@ wrapper                                   replaces (cmr_agent_tpu/ops/
 :func:`segment_sum_count_image_compact`   ``segment_sum_count_image_compact``
 :func:`fused_dense_chain`                 ``fused_dense_chain``
 :func:`fused_dense_chain_cn`              ``fused_dense_chain_cn``
+:func:`segment_sum_image`                 ``segment_sum_image_fused``
+                                          (factored)
 ========================================  ==================================
 
-Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn` and
-:class:`SegmentMeanCountImageFn` are ``torch.autograd.Function``s whose
-forward and backward both go through the wrappers above (kernel or plain
-version by device), as the JAX package's ``custom_vjp`` rules do. They look
-the wrappers up at call time, so swapping a wrapper for its plain version
-(``PLAIN``) swaps it in both directions.
+Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn`,
+:class:`SegmentMeanCountImageFn` and :class:`SegmentSumImageFn` are
+``torch.autograd.Function``s whose forward and backward both go through the
+wrappers above (kernel or plain version by device), as the JAX package's
+``custom_vjp`` rules do. They look the wrappers up at call time, so
+swapping a wrapper for its plain version (``PLAIN``) swaps it in both
+directions.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ _SIGNATURES = {
                         _I, _I, _I, _F, _F, _F, _F, _P],
     "cmr_dense_chain_cn": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _F, _F, _F, _F, _P],
+    "cmr_raster_factored": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_error_string": [_I],
 }
 _lib: Optional[ctypes.CDLL] = None
@@ -424,6 +428,18 @@ def segment_sum(data: torch.Tensor, idx: torch.Tensor,
 segment_sum.launches = 0
 
 
+def segment_mean_count(data: torch.Tensor, idx: torch.Tensor,
+                       num_segments: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generic segment mean + counts ``-> (means [B,M,F], counts [B,M])``:
+    :func:`segment_sum` of the rows with a ones column appended (the JAX
+    package's ``segment_mean_count_fused``); empty segments mean 0."""
+    ones = data.new_ones(data.shape[:2] + (1,))
+    sums = segment_sum(torch.cat([data, ones], dim=-1), idx, num_segments)
+    counts = sums[..., -1]
+    return sums[..., :-1] / counts.clamp_min(1.0)[..., None], counts
+
+
 # --------------------------------------------------------------------------
 # 6. segmented softmax-attend, backward
 # --------------------------------------------------------------------------
@@ -508,24 +524,49 @@ def _pixel_id_raster(data, ids, h: int, w: int, compute_dtype, fn=None):
     return out, cnt
 
 
+def _factored_mean_count(sum_image, data, ids, h: int, w: int,
+                         compute_dtype):
+    """Means and counts from the factored raster ``sum_image`` of the rows
+    with a ones column appended (pallas_kernels.py:938-946): the counts
+    are sums of exact ones, the means ``sums / max(count, 1)``."""
+    ones = data.new_ones(data.shape[:2] + (1,))
+    sums = sum_image(torch.cat([data, ones], dim=-1), ids, h, w,
+                     compute_dtype)
+    counts = sums[..., -1]
+    return sums[..., :-1] / counts.clamp_min(1.0)[..., None], counts
+
+
 def segment_mean_count_image_plain(
         data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
-        compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        compute_dtype=None, factored: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pixel-id raster -> ``(means [B,h*w,F], counts [B,h*w])`` f32.
 
     ``data [B,K,F]``; ``ids [B,K]`` pixel ``y*w + x`` per row, any id
     outside ``[0, h*w)`` routed out. ``compute_dtype`` None/f32, bf16
     (rows rounded to bf16 once, f32 sums) or int8 (:func:`quantize_int8`
-    over all K rows, exact integer sums, then scaled)."""
+    over all K rows, exact integer sums, then scaled). ``factored=True``
+    takes :func:`segment_sum_image_plain` of the rows and a ones column
+    instead (no int8, ``w <= 128``)."""
+    if factored:
+        return _factored_mean_count(segment_sum_image_plain, data, ids, h, w,
+                                    compute_dtype)
     sums, cnt = _pixel_id_raster(data, ids, h, w, compute_dtype)
     return sums / cnt.clamp_min(1.0)[..., None], cnt
 
 
 def segment_mean_count_image(
         data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
-        compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        compute_dtype=None, factored: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper of :func:`segment_mean_count_image_plain`: f32 or
-    bf16 ``data``, int32 ``ids``; int8 accumulates in exact int32."""
+    bf16 ``data``, int32 ``ids``; int8 accumulates in exact int32.
+    ``factored=True`` goes through :class:`SegmentSumImageFn` (the factored
+    kernel, counted by :func:`segment_sum_image`, with its gradient); the
+    episodes keep the default."""
+    if factored:
+        return _factored_mean_count(SegmentSumImageFn.apply, data, ids, h, w,
+                                    compute_dtype)
     if not _on_cuda(data, ids):
         return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
     out = _pixel_id_raster(data, ids, h, w, compute_dtype, "cmr_raster_image")
@@ -851,6 +892,68 @@ def _chain_tensors(x, weights, biases, *rest):
 
 
 # --------------------------------------------------------------------------
+# 12. factored pixel-id raster sum (tools/raster_probe's "fact" cases)
+# --------------------------------------------------------------------------
+
+FACTORED_MAX_W = 128
+_FACTORED_MAX_SLAB_BYTES = 232448     # a block's [w, F] f32 sums, 227 KB
+
+
+def _factored_operand(data: torch.Tensor, w: int, compute_dtype):
+    """``data`` in its compute dtype (f32, or bf16 rounded once); raises as
+    the JAX package's factored path does (pallas_kernels.py:629-634)."""
+    if compute_dtype == torch.int8:
+        raise ValueError("int8 raster is implemented for the flat kernel "
+                         "only")
+    if w > FACTORED_MAX_W:
+        raise ValueError(f"factored raster kernel needs w <= "
+                         f"{FACTORED_MAX_W}, got {w}")
+    q, _ = _operands(data, compute_dtype)
+    return q
+
+
+def segment_sum_image_plain(data: torch.Tensor, ids: torch.Tensor, h: int,
+                            w: int, compute_dtype=None) -> torch.Tensor:
+    """Pixel-id raster sums ``data [B,N,F] x ids [B,N] -> [B,h*w,F]`` f32:
+    row ``j`` adds into pixel ``ids[b, j] = y*w + x``; any id outside
+    ``[0, h*w)`` (negative ones too) contributes nothing. ``compute_dtype``
+    None/f32, or bf16 (rows rounded to bf16 once, f32 sums); int8 and
+    ``w > 128`` raise ``ValueError``."""
+    q = _factored_operand(data, w, compute_dtype).float()
+    b, n, f = q.shape
+    hw = h * w
+    pix = torch.where((ids >= 0) & (ids < hw), ids, torch.full_like(ids, hw))
+    out = q.new_zeros((b, hw + 1, f))
+    out.scatter_add_(1, pix.long()[..., None].expand(b, n, f), q)
+    return out[:, :hw]
+
+
+def segment_sum_image(data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
+                      compute_dtype=None) -> torch.Tensor:
+    """Kernel wrapper of :func:`segment_sum_image_plain`: f32 or bf16
+    ``data``, int32 ``ids``. One block per (sample, image row) sums its row
+    of pixels in shared memory and writes it once."""
+    if not _on_cuda(data, ids):
+        return segment_sum_image_plain(data, ids, h, w, compute_dtype)
+    b, n, f = data.shape
+    _require("data", data, (torch.float32, torch.bfloat16), (b, n, f))
+    _require("ids", ids, (torch.int32,), (b, n))
+    q = _factored_operand(data, w, compute_dtype).contiguous()
+    if w < 1 or h < 1 or w * f * 4 > _FACTORED_MAX_SLAB_BYTES:
+        raise ValueError(f"factored raster kernel needs h, w >= 1 and a "
+                         f"[w, F] f32 slab of at most 227 KB; got h={h}, "
+                         f"w={w}, F={f}")
+    out = torch.empty((b, h * w, f), device=data.device)
+    _launch("cmr_raster_factored", _ptr(q), 0 if q.dtype == torch.float32
+            else 1, _ptr(ids), _ptr(out), b, n, f, h, w, _stream())
+    segment_sum_image.launches += 1
+    return out
+
+
+segment_sum_image.launches = 0
+
+
+# --------------------------------------------------------------------------
 # autograd Functions (the JAX package's custom_vjp rules)
 # --------------------------------------------------------------------------
 
@@ -914,12 +1017,30 @@ class SegmentMeanCountImageFn(torch.autograd.Function):
         return gather_rows(g_sums, ids).to(ctx.dtype), None, None, None, None
 
 
+class SegmentSumImageFn(torch.autograd.Function):
+    """:func:`segment_sum_image`; its backward is :func:`gather_rows` of the
+    sums' gradient, zero for routed-out rows, the bf16 rounding
+    differentiated as the identity (pallas_kernels.py:705-717)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, h: int, w: int, compute_dtype=None):
+        ctx.save_for_backward(ids)
+        ctx.dtype = data.dtype
+        return segment_sum_image(data, ids, h, w, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        d_data = gather_rows(grad.contiguous(), ids)
+        return d_data.to(ctx.dtype), None, None, None, None
+
+
 WRAPPERS = (segment_softmax_attend, gather_rows, knn,
             segment_mean_count_image_project, segment_sum,
             segment_softmax_attend_backward, segment_mean_count_image,
             segment_sum_shared, mask_compact_pack,
             segment_sum_count_image_compact, fused_dense_chain,
-            fused_dense_chain_cn)
+            fused_dense_chain_cn, segment_sum_image)
 PLAIN = {
     "segment_softmax_attend": segment_softmax_attend_plain,
     "gather_rows": gather_rows_plain,
@@ -933,6 +1054,7 @@ PLAIN = {
     "segment_sum_count_image_compact": segment_sum_count_image_compact_plain,
     "fused_dense_chain": fused_dense_chain_plain,
     "fused_dense_chain_cn": fused_dense_chain_cn_plain,
+    "segment_sum_image": segment_sum_image_plain,
 }
 
 

@@ -108,7 +108,8 @@ bad = [m for m in sys.modules
 assert not bad, bad
 for name in ("models.cost_volume", "train.train_iter", "env.environment",
              "env.episode", "models.layers", "models.agent", "ops.geometry",
-             "ops.scatter", "serve", "ops.kernels"):
+             "ops.scatter", "serve", "ops.kernels", "utils.profiling",
+             "tools.raster_probe", "tools.episode_trace", "tools.train_probe"):
     assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))
 """

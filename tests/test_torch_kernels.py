@@ -166,13 +166,14 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_no_launch():
     kernels.fused_dense_chain(_t(feat), [w0], [torch.zeros(4)], slopes=[0.2])
     kernels.fused_dense_chain_cn(_t(feat).transpose(1, 2).contiguous(), [w0],
                                  [torch.zeros(4)], slopes=[None])
+    kernels.segment_sum_image(_t(feat), ids, h, w)
     assert kernels.launch_counts() == {
         "segment_softmax_attend": 0, "gather_rows": 0, "knn": 0,
         "segment_mean_count_image_project": 0, "segment_sum": 0,
         "segment_softmax_attend_backward": 0, "segment_mean_count_image": 0,
         "segment_sum_shared": 0, "mask_compact_pack": 0,
         "segment_sum_count_image_compact": 0, "fused_dense_chain": 0,
-        "fused_dense_chain_cn": 0}
+        "fused_dense_chain_cn": 0, "segment_sum_image": 0}
     meta = torch.zeros(2, 3, device="meta")
     with pytest.raises(ValueError):
         kernels.gather_rows(meta[None], torch.zeros(1, 2, dtype=torch.int32))

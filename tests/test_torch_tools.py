@@ -1,0 +1,269 @@
+"""The factored image raster (kernel 6b), the generic segment mean, the
+profiling helpers and the measuring tools of the port, on the CPU.
+
+The raster's plain version, its mean/count form and its gradient are held
+against the JAX package's Pallas kernel in ``interpret=True`` mode; the
+port's wrappers take their plain versions because the tensors lie on the
+CPU. Inputs are made with numpy from fixed seeds and handed to both
+packages. The tools run at a tiny size with ``--device cpu``; without it
+they ask for CUDA and raise here.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmr_agent_tpu.ops import pallas_kernels as pk
+from cmr_agent_tpu_torch.ops import kernels
+from cmr_agent_tpu_torch.utils import profiling
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _raster_inputs(seed: int, h: int, w: int, n: int = 300, f: int = 6):
+    """Rows and pixel ids with every kind of routed-out id: ``h*w``, above
+    it, negative, and a dead tail (the valid-first layout's)."""
+    rng = np.random.default_rng(seed)
+    hw = h * w
+    data = rng.normal(size=(2, n, f)).astype(np.float32)
+    ids = rng.integers(0, hw, size=(2, n)).astype(np.int32)
+    ids[:, :10] = hw
+    ids[:, 10:20] = hw + rng.integers(1, 1000, size=10)
+    ids[:, 20:30] = -rng.integers(1, 2 * w, size=10)
+    ids[0, n - 64:] = hw
+    ids[1, n - 100:] = hw + 7
+    return data, ids
+
+
+def _jax_dtype(mode):
+    return None if mode == "float32" else jnp.bfloat16
+
+
+def _torch_dtype(mode):
+    return None if mode == "float32" else torch.bfloat16
+
+
+SHAPES = [(5, 16), (3, 128)]
+
+
+@pytest.mark.parametrize("hw", SHAPES, ids=["5x16", "3x128"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_segment_sum_image_plain_matches_jax(mode, hw):
+    """rtol 1e-5 atol 1e-6 (f32 sums in another order; bf16: both round the
+    rows once and sum in f32); pixels no row lands in are exactly 0."""
+    h, w = hw
+    data, ids = _raster_inputs(21, h, w)
+    got = kernels.segment_sum_image(_t(data), _t(ids), h, w,
+                                    _torch_dtype(mode)).numpy()
+    want = np.asarray(pk.segment_sum_image_fused(
+        jnp.asarray(data), jnp.asarray(ids), h, w, 128, True,
+        _jax_dtype(mode), True))
+    assert got.shape == want.shape == (2, h * w, data.shape[-1])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    landed = np.zeros((2, h * w), bool)
+    for b in range(2):
+        ok = (ids[b] >= 0) & (ids[b] < h * w)
+        landed[b, ids[b][ok]] = True
+    assert (~landed).any() and np.all(got[~landed] == 0.0)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_segment_mean_count_image_factored_matches_jax(mode):
+    """Counts exact, means rtol 1e-5, against
+    ``segment_mean_count_image_fused(factored=True)``."""
+    h, w = 5, 16
+    data, ids = _raster_inputs(22, h, w)
+    got_m, got_c = kernels.segment_mean_count_image(
+        _t(data), _t(ids), h, w, _torch_dtype(mode), factored=True)
+    want_m, want_c = pk.segment_mean_count_image_fused(
+        jnp.asarray(data), jnp.asarray(ids), h, w, 128, True,
+        _jax_dtype(mode), True)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    landed = ((ids >= 0) & (ids < h * w)).sum()
+    assert got_c.numpy().sum() == landed
+    np.testing.assert_allclose(got_m.detach().numpy(), np.asarray(want_m),
+                               rtol=RTOL, atol=ATOL)
+    plain_m, plain_c = kernels.segment_mean_count_image_plain(
+        _t(data), _t(ids), h, w, _torch_dtype(mode), factored=True)
+    np.testing.assert_array_equal(plain_c.numpy(), got_c.numpy())
+    np.testing.assert_array_equal(plain_m.numpy(), got_m.detach().numpy())
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_segment_sum_image_gradient_matches_jax(mode):
+    """Torch autograd through :class:`SegmentSumImageFn` against
+    ``jax.vjp`` of the factored kernel: exact (a row gather), zero for
+    routed-out rows; the bf16 rounding differentiates as the identity."""
+    h, w = 5, 16
+    data, ids = _raster_inputs(23, h, w)
+    g = np.random.default_rng(24).normal(
+        size=(2, h * w, data.shape[-1])).astype(np.float32)
+
+    def fwd(d):
+        return pk.segment_sum_image_fused(d, jnp.asarray(ids), h, w, 128,
+                                          True, _jax_dtype(mode), True)
+
+    _, vjp = jax.vjp(fwd, jnp.asarray(data))
+    (want,) = vjp(jnp.asarray(g))
+    d = _t(data).requires_grad_()
+    kernels.SegmentSumImageFn.apply(d, _t(ids), h, w,
+                                    _torch_dtype(mode)).backward(_t(g))
+    np.testing.assert_array_equal(d.grad.numpy(), np.asarray(want))
+    routed_out = (ids < 0) | (ids >= h * w)
+    assert routed_out.any() and np.all(d.grad.numpy()[routed_out] == 0.0)
+    # the factored mean's gradient reaches the rows through the same gather
+    d2 = _t(data).requires_grad_()
+    kernels.segment_mean_count_image(d2, _t(ids), h, w, _torch_dtype(mode),
+                                     factored=True)[0].sum().backward()
+    assert np.all(d2.grad.numpy()[routed_out] == 0.0)
+    assert np.all(d2.grad.numpy()[~routed_out] > 0.0)
+
+
+@pytest.mark.parametrize("case", ["int8", "wide"])
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_factored_raster_refusals(package, case):
+    """int8 (flat kernel only) and ``w > 128`` raise ``ValueError`` in both
+    packages."""
+    h, w = (5, 16) if case == "int8" else (2, 129)
+    data, ids = _raster_inputs(25, h, w, n=64)
+    if package == "jax":
+        dt = jnp.int8 if case == "int8" else None
+        with pytest.raises(ValueError):
+            pk.segment_sum_image_fused(jnp.asarray(data), jnp.asarray(ids),
+                                       h, w, 64, True, dt, True)
+    else:
+        dt = torch.int8 if case == "int8" else None
+        with pytest.raises(ValueError):
+            kernels.segment_sum_image(_t(data), _t(ids), h, w, dt)
+        with pytest.raises(ValueError):
+            kernels.segment_mean_count_image(_t(data), _t(ids), h, w, dt,
+                                             factored=True)
+
+
+def test_segment_mean_count_matches_jax():
+    """The generic segment mean (raster_probe's "base"): counts exact,
+    means rtol 1e-5, against ``segment_mean_count_fused``."""
+    rng = np.random.default_rng(26)
+    b, n, f, m = 2, 400, 5, 37
+    data = rng.normal(size=(b, n, f)).astype(np.float32)
+    idx = rng.integers(0, m - 4, size=(b, n)).astype(np.int32)
+    idx[:, :15] = m
+    idx[:, 15:25] = m + 9
+    got_m, got_c = kernels.segment_mean_count(_t(data), _t(idx), m)
+    want_m, want_c = pk.segment_mean_count_fused(
+        jnp.asarray(data), jnp.asarray(idx), m, 128, True)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    assert got_c.numpy().sum() == b * (n - 25)
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=RTOL,
+                               atol=ATOL)
+    assert np.all(got_m.numpy()[:, m - 4:] == 0.0)
+
+
+def test_phase_timer_counts_and_report():
+    timer = profiling.PhaseTimer(sync=True)
+    for _ in range(3):
+        with timer("raster", result=torch.zeros(2)):
+            torch.ones(64).sum()
+    with timer("episode"):
+        pass
+    assert timer.counts == {"raster": 3, "episode": 1}
+    assert all(t >= 0.0 for t in timer.totals.values())
+    lines = timer.report().splitlines()
+    assert len(lines) == 2 and any("x3" in ln and "raster" in ln
+                                   for ln in lines)
+    timer.reset()
+    assert timer.report() == ""
+
+
+def test_trace_context_writes_a_chrome_trace(tmp_path):
+    with profiling.trace_context(None):
+        torch.ones(8).sum()                      # falsy logdir: no-op
+    assert not any(tmp_path.iterdir())
+    logdir = tmp_path / "trace"
+    with profiling.trace_context(str(logdir)):
+        torch.randn(64, 64) @ torch.randn(64, 64)
+    trace = json.loads((logdir / "trace.json").read_text())
+    assert any("mm" in ev.get("name", "") for ev in trace["traceEvents"])
+    rows, wall_ms = profiling.profile_device(
+        lambda: torch.randn(64, 64) @ torch.randn(64, 64), "cpu", iters=2)
+    assert wall_ms > 0.0 and any("mm" in k for k in rows)
+    assert all(ms >= 0.0 and n >= 1 for ms, n in rows.values())
+
+
+def _tool(name):
+    import importlib
+    return importlib.import_module(f"cmr_agent_tpu_torch.tools.{name}")
+
+
+TOOL_ARGS = {
+    "raster_probe": ["--batch", "2", "--n", "512", "--f", "8", "--h", "4",
+                     "--w", "16", "--iters", "1", "--valid-frac", "0.5"],
+    "train_probe": ["--config", "micro", "--batch", "2", "--steps", "1"],
+    "episode_trace": ["--config", "micro", "--batch", "2", "--iters", "1",
+                      "--dtype", "float32",
+                      "--top", "5"],
+}
+
+
+def test_raster_probe_runs_on_cpu(capsys):
+    out = _tool("raster_probe").main(TOOL_ARGS["raster_probe"]
+                                     + ["--device", "cpu"])
+    cases = ("base", "flat_f32", "flat_bf16", "fact_f32", "fact_bf16",
+             "comp_f32", "comp_bf16")
+    assert all(out[f"{c}_ms"] > 0.0 for c in cases)
+    assert out["best"] in cases and out["best_speedup_vs_base"] >= 1.0
+    assert out["valid_frac"] == 0.5 and out["device"] == "cpu"
+    printed = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(printed) == out
+    # the cases compute one function: their means agree on the probe's rows
+    feat, ids = _tool("raster_probe").make_inputs(2, 512, 8, 4, 16, 0.5,
+                                                  False, "cpu")
+    means = {c: fn(feat, ids) for c, fn in
+             _tool("raster_probe").cases(4, 16).items()}
+    for c in ("flat_f32", "fact_f32", "comp_f32"):
+        np.testing.assert_allclose(means[c].numpy(), means["base"].numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_train_probe_runs_on_cpu():
+    out = _tool("train_probe").main(TOOL_ARGS["train_probe"]
+                                    + ["--device", "cpu"])
+    variants = ("pure", "lazylog", "sync", "hostrng", "feed")
+    assert set(out["ms_per_step"]) == set(variants)
+    assert all(v > 0.0 for v in out["ms_per_step"].values())
+    assert set(out["residue_vs_pure_ms"]) == set(variants[1:])
+    assert out["batch"] == 2 and out["dtype"] == "float32"
+    with pytest.raises(ValueError, match="float32"):
+        _tool("train_probe").main(TOOL_ARGS["train_probe"]
+                                  + ["--device", "cpu", "--dtype",
+                                     "bfloat16"])
+
+
+def test_episode_trace_runs_on_cpu():
+    out = _tool("episode_trace").main(TOOL_ARGS["episode_trace"]
+                                      + ["--device", "cpu"])
+    assert out["total_device_ms_per_iter"] is None    # no card
+    assert out["wall_ms_per_iter"] > 0.0
+    assert 1 <= len(out["top"]) <= 5
+    for row in out["top"]:
+        assert set(row) == {"op", "total_ms", "per_iter_ms", "count", "pct"}
+    assert sum(r["pct"] for r in out["top"]) <= 100.0 + 1e-6
+
+
+@pytest.mark.parametrize("name", sorted(TOOL_ARGS))
+def test_tools_refuse_to_fall_back_to_cpu(name):
+    """Without ``--device cpu`` a tool asks for the card; on a host without
+    CUDA it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _tool(name).main(TOOL_ARGS[name])
