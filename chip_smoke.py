@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase geo_train --repeat 3   # one phase alone
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -387,7 +388,8 @@ PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
                      "segment_sum_kernel", "softmax_backward_kernel",
                      "raster_image_kernel", "segment_sum_shared_kernel",
                      "mask_count_kernel", "mask_pack_kernel",
-                     "dense_chain_kernel", "raster_compact_kernel",
+                     "chain_mma_kernel", "chain_f32_kernel",
+                     "raster_compact_kernel",
                      "raster_factored_kernel")
 
 
@@ -538,13 +540,29 @@ def check_train_kernels(torch, kernels, dev):
                 data, ids, IMG_H, IMG_W, dt), 20),
             plain_ms=cuda_ms(lambda: kernels.segment_mean_count_image_plain(
                 data, ids, IMG_H, IMG_W, dt), 10),
-            library_ms=None,
+            library_ms=(index_add_ms(torch, data, ids, hw) if dt is None
+                        else None),
             bound=bound(B * RASTER_K * 4 + landed * F * elt
                         + B * hw * (F + 1) * 4,
                         (F + 1.0) * landed + B * hw * F))
         print_rows({f"segment_mean_count_image[{mode}]": modes[mode]})
     rows["segment_mean_count_image"] = modes["f32"]
     return rows, modes
+
+
+def index_add_ms(torch, data, ids, hw: int) -> float:
+    """The library call of a pixel-id raster: ``index_add_`` of the rows
+    with a ones column (the counts), flattened, into ``[B * (hw + 1),
+    F + 1]`` (one spill row per sample for the routed-out ids)."""
+    b, k, f = data.shape
+    pix = torch.where((ids >= 0) & (ids < hw), ids, hw).long()
+    flat = (pix + (hw + 1) * torch.arange(b, device=data.device)[:, None]
+            ).reshape(-1)
+    rows2d = torch.cat([data, data.new_ones(b, k, 1)], -1).reshape(b * k,
+                                                                   f + 1)
+    return cuda_ms(lambda: torch.zeros(
+        b * (hw + 1), f + 1, device=data.device).index_add_(0, flat, rows2d),
+        20)
 
 
 def timed(torch, fn):
@@ -559,7 +577,6 @@ def timed(torch, fn):
 def run_geo_train(torch, kernels, serve, cfg, dev):
     """Phase 6: the geo train step at KITTI width, B=8, f32. Returns
     (launch counts of one step, the trained state, the batch)."""
-    from cmr_agent_tpu_torch.models.layers import set_dropout_rate
     from cmr_agent_tpu_torch.train import train_geo
     batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
     step = train_geo.make_geo_train_step(cfg)
@@ -597,6 +614,17 @@ def run_geo_train(torch, kernels, serve, cfg, dev):
                  unprofiled_ms=statistics.median(times) * 1e3,
                  phase="geo_train")
 
+    compare_geo_twins(torch, kernels, cfg, batch, dev)
+    return counts, state, batch
+
+
+def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
+    """Phase 6's gate: the geo train step's gradients and three steps'
+    losses, a twin with the kernels against a twin with the plain versions,
+    both from seed 0 with dropout off. Prints ``[geo_train_vs_plain]``."""
+    from cmr_agent_tpu_torch.models.layers import set_dropout_rate
+    from cmr_agent_tpu_torch.train import train_geo
+    step = train_geo.make_geo_train_step(cfg)
     # twins from the same seed with the kernels and with the plain
     # versions, dropout off: gradients of one forward/backward, then three
     # steps' losses
@@ -632,6 +660,7 @@ def run_geo_train(torch, kernels, serve, cfg, dev):
             losses[name] = [step(twin, batch)["loss"].item()
                             for _ in range(3)]
     worst, beyond, worst_vs_floor, outliers = 0.0, 0, 0.0, []
+    worst_rel, floors_rel = 0.0, []
     for n, g in grads["kernels"].items():
         want = grads["plain"][n]
         scale = want.abs().max().item()
@@ -646,25 +675,31 @@ def run_geo_train(torch, kernels, serve, cfg, dev):
         tol = max(1e-3 * scale, 4.0 * floor) + 1e-7
         if diff > tol:
             outliers.append((n, diff, scale, floor))
-            assert diff <= 2e-3 * scale + 1e-7, outliers[-1]
+            worst_rel = max(worst_rel, diff / scale)
         worst = max(worst, diff / tol)
+        if scale > 0:
+            floors_rel.append(floor / scale)
         if diff > 1e-3 * scale + 1e-7:
             beyond += 1
             worst_vs_floor = max(worst_vs_floor, diff / floor)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
                                                losses["plain"])]
-    # step 1 differs only by atomic order; Adam's normalised update can turn
-    # a near-zero gradient element's sign into a full lr step after it
-    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
-    assert len(outliers) <= len(grads["kernels"]) // 100, outliers
     line("geo_train_vs_plain", grad_tensors=len(grads["kernels"]),
          max_diff_over_tol=f"{worst:.3f}", tensors_past_tol=len(outliers),
          tensors_beyond_1e3_of_max=beyond,
+         past_tol_max_diff_over_max_abs=f"{worst_rel:.3e}",
+         nudge_floor_over_max_abs_median=(
+             f"{statistics.median(floors_rel):.3e}"),
          their_max_diff_over_nudge_diff=f"{worst_vs_floor:.3f}",
          loss_kernels=",".join(f"{v:.7f}" for v in losses["kernels"]),
          loss_plain=",".join(f"{v:.7f}" for v in losses["plain"]),
          loss_rel_diff=",".join(f"{v:.2e}" for v in rel))
-    return counts, state, batch
+    for o in outliers:
+        assert o[1] <= 2e-3 * o[2] + 1e-7, o
+    # step 1 differs only by atomic order; Adam's normalised update can turn
+    # a near-zero gradient element's sign into a full lr step after it
+    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
+    assert len(outliers) <= len(grads["kernels"]) // 100, outliers
 
 
 def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
@@ -1193,11 +1228,45 @@ def randomise_module_(torch, module, gen) -> None:
                 t.copy_(torch.randn(t.shape, generator=gen) * 0.3)
 
 
+CHAIN_KERNEL_NAMES = ("chain_mma_kernel", "chain_f32_kernel")
+
+
+def kernel_device_ms(fn, names, iters: int = 10) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``names`` (``torch.profiler``), over ``iters`` calls after a warm-up:
+    the kernel alone, without the wrapper's own PyTorch ops."""
+    fn()
+    for _ in range(3):   # the profiler now and then returns no rows
+        by_name, _ = profile_device(fn, iters=iters)
+        ms = sum(t for k, (t, _) in by_name.items()
+                 if any(n in k for n in names))
+        if ms > 0:
+            return ms / iters
+    raise AssertionError(f"no device time for {names}: {sorted(by_name)}")
+
+
+def host_us(torch, fn, iters: int = 50) -> float:
+    """Host time per call of ``fn`` in µs: the time to enqueue its work, the
+    device left to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def chain_row(torch, kernels, name, args, kw, library, label, dt, shape):
     """Kernel vs plain on one chain's arguments (f32 rtol/atol 1e-5;
     bf16 within one bf16 rounding of the output's scale, as the CPU tests
     hold the plain version to the Pallas kernel), with its times and the
-    bound; ``library`` times the port's unfused eval module."""
+    bound: ``ms`` is the wrapper's CUDA-event time (as on every row),
+    ``device_ms`` the chain kernel's own device time (profiler), and
+    ``[chain_times]`` adds the wrapper's host time per call and that of
+    its weight packing alone (``kernels.pack_chain_weights``); ``library``
+    times the port's unfused eval module."""
     kernel, plain = getattr(kernels, name), kernels.PLAIN[name]
     got, want = kernel(*args, **kw), plain(*args, **kw)
     outs = zip(got, want) if kw.get("out_max") else ((got, want),)
@@ -1229,10 +1298,74 @@ def chain_row(torch, kernels, name, args, kw, library, label, dt, shape):
         tol=("rtol 1e-5 atol 1e-5" if dt == torch.float32 else
              "rtol 2^-8, atol 2^-8 max|out| (one bf16 rounding)"),
         ms=cuda_ms(lambda: kernel(*args, **kw), 20),
+        device_ms=kernel_device_ms(lambda: kernel(*args, **kw),
+                                   CHAIN_KERNEL_NAMES),
         plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
         library_ms=cuda_ms(library, 10), bound=bound(nbytes, ops, rate))
     print_rows({f"{name}[{label}]": row})
+    wrapper_us = host_us(torch, lambda: kernel(*args, **kw))
+    pack_us = host_us(torch,
+                      lambda: kernels.pack_chain_weights(mats, x.dtype))
+    line("chain_times", name=f"{name}[{label}]", ms=f"{row['ms']:.5f}",
+         device_ms=f"{row['device_ms']:.5f}",
+         wrapper_host_us=f"{wrapper_us:.1f}", pack_host_us=f"{pack_us:.1f}")
     return row
+
+
+def check_chain_backward(torch, kernels, cn: bool, args, kw, label):
+    """The chain's gradient on the card: ``kernels.dense_chain`` (kernel
+    forward, autograd of the plain chain backward) against autograd of the
+    plain chain on the same inputs and cotangents, for x, every weight and
+    bias, the projection and ``pooled``. Bit-equal: the backward recomputes
+    the plain version. Also checks that every output has a ``grad_fn``."""
+    x, weights, biases = args[0], list(args[1]), list(args[2])
+    rest = list(args[3:6]) + [None] * (6 - len(args))
+    rest = [kw.get(k, v) for k, v in zip(("res_weight", "res_bias",
+                                          "pooled"), rest)]
+    opts = {k: v for k, v in kw.items()
+            if k in ("slopes", "residual", "final_slope", "out_max")}
+    plain = (kernels.fused_dense_chain_cn_plain if cn
+             else kernels.fused_dense_chain_plain)
+    gen = torch.Generator().manual_seed(7)
+    grads, cot = [], None
+    for fn in ("function", "plain"):
+        leaves = [t.detach().clone().requires_grad_() if t is not None
+                  else None for t in [x, *weights, *biases, *rest]]
+        L = len(weights)
+        call = (lambda *a, **k: kernels.dense_chain(*a, cn=cn, **k)) \
+            if fn == "function" else plain
+        with torch.enable_grad():
+            outs = call(leaves[0], leaves[1:1 + L], leaves[1 + L:1 + 2 * L],
+                        *leaves[1 + 2 * L:], **opts)
+        outs = outs if opts.get("out_max") else (outs,)
+        assert all(o.grad_fn is not None for o in outs), label
+        if cot is None:
+            cot = [torch.randn(o.shape, generator=gen).to(o.device, o.dtype)
+                   for o in outs]
+        torch.autograd.backward(outs, cot)
+        grads.append([None if t is None else t.grad for t in leaves])
+    diff = max((a - b).abs().max().item() for a, b in zip(*grads)
+               if a is not None)
+    line("chain_backward", name=label, tensors=sum(
+        g is not None for g in grads[0]), max_abs_diff=diff,
+        tol="bit-equal to autograd of the plain chain")
+    assert diff == 0.0, (label, diff)
+
+
+def print_ptxas(build, stem: str, names) -> None:
+    """Registers, stack, shared memory and spills of the kernels of
+    ``csrc/<stem>.cu`` whose entry names contain one of ``names``, from
+    the compiler's report in ``build.log``."""
+    log = (build.library_path().parent / "build.log").read_text()
+    part = log.split(f"== {stem}.cu")[1].split("\n== ")[0]
+    entry = None
+    for ln in part.splitlines():
+        if "Compiling entry function" in ln:
+            entry = next((n for n in names if n in ln), None)
+            if entry is not None:
+                entry += "<cn>" if "ILb1E" in ln else "<nc>"
+        elif entry is not None and ("spill" in ln or "registers" in ln):
+            line("ptxas", kernel=entry, report=repr(ln.strip()))
 
 
 def check_chain_kernels(torch, kernels, dev):
@@ -1241,6 +1374,8 @@ def check_chain_kernels(torch, kernels, dev):
     state3d_3 in f32, the largest chains)."""
     from cmr_agent_tpu_torch.models.agent import _fused_virtual_concat_block
     from cmr_agent_tpu_torch.models.layers import MiniPointNet, ResDenseBlock
+    from cmr_agent_tpu_torch.ops import build
+    print_ptxas(build, "dense_chain", CHAIN_KERNEL_NAMES)
     gen = torch.Generator().manual_seed(99)
     rows = {}
     geo = (("raw_point_mlp", N_PT, lambda dt: MiniPointNet(3, F, dt, True)),
@@ -1274,6 +1409,9 @@ def check_chain_kernels(torch, kernels, dev):
                 row = chain_row(torch, kernels, "fused_dense_chain", args,
                                 kw, library, f"{label},{tag}", dt,
                                 f"{label} [{B},{n},{cin}] {tag}")
+            if label == "point_fuse_0":
+                check_chain_backward(torch, kernels, False, args, kw,
+                                     f"fused_dense_chain[{label},{tag}]")
             if (label, tag) == ("point_fuse_0", "f32"):
                 rows["fused_dense_chain"] = row
         # the agent's four 3-D stages, channel-major
@@ -1319,6 +1457,12 @@ def check_chain_kernels(torch, kernels, dev):
                                 args, kw, library, label, dt,
                                 f"state3d_{i} [{B},{args[0].shape[1]},"
                                 f"{N_PT}] {tag}")
+                if i == 3:
+                    # identity_split with out_max: gradients for both
+                    # outputs and pooled
+                    check_chain_backward(
+                        torch, kernels, True, args, dict(kw, out_max=True),
+                        f"fused_dense_chain_cn[state3d_3,{tag},out_max]")
             if (i, tag) == (3, "f32"):
                 rows["fused_dense_chain_cn"] = row
         del blocks, obs, feat
@@ -1429,6 +1573,7 @@ def check_compact_kernels(torch, kernels, data, ids, landed: int):
             bound=bound(b * n * 4 + feat_rows * f * 4 + b * hw * (f + 1) * 4,
                         (f + 1.0) * landed))
         print_rows({f"segment_sum_count_image_compact[{mode}]": rows[mode]})
+    check_compact_backward(torch, kernels, data, ids)
     gm, gc = kernels.segment_mean_count_image(data, ids, IMG_H, IMG_W,
                                               torch.int8)
     wm, wc = kernels.segment_mean_count_image_plain(data, ids, IMG_H, IMG_W,
@@ -1452,6 +1597,37 @@ def check_compact_kernels(torch, kernels, data, ids, landed: int):
     print_rows({"segment_mean_count_image_int8": int8_row})
     return {"segment_sum_count_image_compact": rows["f32"],
             "segment_mean_count_image_int8": int8_row}
+
+
+def check_compact_backward(torch, kernels, data, ids) -> None:
+    """Kernel 8's gradient on the card: ``SegmentSumCountImageCompactFn``
+    (the compacting kernel forward, the row-gather kernel backward) against
+    autograd of the plain version in f32, bit-equal (both gather the sums'
+    gradient; routed-out rows get 0); in bf16 and int8 equal to the f32
+    gradient, the rounding and the quantisation differentiated as the
+    identity (the JAX package's rule for every compute dtype)."""
+    g = torch.randn(data.shape[0], IMG_H * IMG_W, data.shape[-1],
+                    generator=torch.Generator().manual_seed(5)).to(data.device)
+    ids = ids.clone()   # the episode's ids are inference tensors
+    grads = {}
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        d = data.detach().clone().requires_grad_()
+        before = kernels.gather_rows.launches
+        sums, cnt = kernels.SegmentSumCountImageCompactFn.apply(
+            d, ids, IMG_H, IMG_W, dt)
+        assert sums.grad_fn is not None and not cnt.requires_grad
+        sums.backward(g)
+        assert kernels.gather_rows.launches == before + 1, mode
+        grads[mode] = d.grad
+    d_p = data.detach().clone().requires_grad_()
+    kernels.segment_sum_count_image_compact_plain(
+        d_p, ids, IMG_H, IMG_W)[0].backward(g)
+    diffs = {m: (v - d_p.grad).abs().max().item() for m, v in grads.items()}
+    line("compact_backward", tol="bit-equal to autograd of the plain "
+         "version (f32) and to the f32 gradient (bf16, int8)",
+         **{f"max_abs_diff_{m}": v for m, v in diffs.items()})
+    assert all(v == 0.0 for v in diffs.values()), diffs
 
 
 def rows_sums_mean(torch, kernels, data, ids):
@@ -1572,17 +1748,8 @@ def check_factored_kernel(torch, kernels, dev):
             kernels.segment_sum_image_plain(d_p, ids, IMG_H, IMG_W,
                                             dt).backward(g)
             assert torch.equal(d.grad, d_p.grad), (layout, mode)
-            library_ms = None
-            if dt is None:
-                # the one library call: index_add_ of the flattened rows
-                # into [B * (h*w + 1), F + 1] (a spill row per sample)
-                pix = torch.where((ids >= 0) & (ids < hw), ids, hw).long()
-                flat = (pix + (hw + 1) * torch.arange(
-                    B, device=dev)[:, None]).reshape(-1)
-                rows2d = data.reshape(B * RASTER_K, F + 1)
-                library_ms = cuda_ms(lambda: torch.zeros(
-                    B * (hw + 1), F + 1, device=dev).index_add_(
-                        0, flat, rows2d), 20)
+            library_ms = (index_add_ms(torch, feat, ids, hw) if dt is None
+                          else None)
             elt = data.element_size()
             r = dict(
                 max_abs_err=(got - want).abs().max().item(),
@@ -1632,7 +1799,40 @@ def run_tools(torch, kernels):
     return launches
 
 
-def main() -> int:
+def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
+              repeat: int) -> int:
+    """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
+    twins' gradients and losses, without the timed steps), "chains" phase
+    12. Returns the number of repeats that failed their gate."""
+    failed = 0
+    for i in range(repeat):
+        try:
+            if phase == "geo_train":
+                cfg = kitti_config()
+                batch = serve.synthetic_batch(cfg, B, dev, seed=0,
+                                              keys=serve.TRAIN_KEYS)
+                compare_geo_twins(torch, kernels, cfg, batch, dev)
+            else:
+                check_chain_kernels(torch, kernels, dev)
+            line("phase_gate", phase=phase, repeat=i, passed=True)
+        except AssertionError as e:
+            failed += 1
+            line("phase_gate", phase=phase, repeat=i, passed=False,
+                 error=repr(str(e)[:300]))
+        torch.cuda.empty_cache()
+    return failed
+
+
+def main(argv=None) -> int:
+    """Every phase, with no arguments. ``--phase geo_train|chains
+    [--repeat N]`` builds the kernels and runs that one phase N times
+    instead (exit code 1 if any repeat failed its gate)."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", choices=("all", "geo_train", "chains"),
+                    default="all")
+    ap.add_argument("--repeat", type=int, default=1)
+    opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1656,6 +1856,11 @@ def main() -> int:
     kernels.library()
     line("build", seconds=f"{time.perf_counter() - t0:.2f}",
          library=build.library_path())
+    if opts.phase != "all":
+        failed = run_phase(torch, kernels, serve, kitti_config, dev,
+                           opts.phase, opts.repeat)
+        print(smi, flush=True)
+        return 1 if failed else 0
 
     rows = check_kernels(torch, kernels, dev)
     counts, _ = run_path(torch, kernels, serve, kitti_config, "float32")

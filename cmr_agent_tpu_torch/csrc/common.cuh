@@ -20,6 +20,12 @@
     if (cmr_err_ != cudaSuccess) return (int)cmr_err_; \
   } while (0)
 
+// The kernels' own refusals, beside CUDA's (positive) error codes: -1 an
+// unsupported argument, -2 operands that do not fit in a block's shared
+// memory (ops/kernels.py:_REFUSALS names them).
+#define CMR_ERR_ARGUMENT (-1)
+#define CMR_ERR_SHARED_MEMORY (-2)
+
 static inline unsigned int cmr_blocks(long long total, int threads) {
   return (unsigned int)((total + threads - 1) / threads);
 }

@@ -55,16 +55,16 @@ def _fused_virtual_concat_block(blk: ResDenseBlock, feat: torch.Tensor,
     pooled32 = pooled.float()
     w0, b0 = fold_dense_bn(blk.net[0], blk.net[1])
     w1, b1 = fold_dense_bn(blk.net[3], blk.net[4])
-    chain = kernels.fused_dense_chain_cn if cn else kernels.fused_dense_chain
     bias0 = pooled32 @ w0[f_in:] + b0
     if blk.shortcut is None:
-        return chain(feat, (w0[:f_in], w1), (bias0, b1), pooled=pooled32,
-                     slopes=(0.2, None), residual="identity_split",
-                     final_slope=0.2)
+        return kernels.dense_chain(feat, (w0[:f_in], w1), (bias0, b1),
+                                   pooled=pooled32, slopes=(0.2, None),
+                                   residual="identity_split",
+                                   final_slope=0.2, cn=cn)
     w2, b2 = fold_dense_bn(blk.shortcut[0], blk.shortcut[1])
-    return chain(feat, (w0[:f_in], w1), (bias0, b1), w2[:f_in],
-                 pooled32 @ w2[f_in:] + b2, slopes=(0.2, None),
-                 residual="proj", final_slope=0.2)
+    return kernels.dense_chain(feat, (w0[:f_in], w1), (bias0, b1), w2[:f_in],
+                               pooled32 @ w2[f_in:] + b2, slopes=(0.2, None),
+                               residual="proj", final_slope=0.2, cn=cn)
 
 
 def _mlp_head(cin: int, hidden: int, out: int, dtype) -> nn.Sequential:

@@ -24,9 +24,10 @@ for ``nn.Dense(dtype=...)``.
 
 Fused eval stacks (JAX ``layers.py:66-269``): a :class:`MiniPointNet` or
 :class:`ResDenseBlock` built with ``fused=True`` runs, in ``eval()`` mode,
-as one :func:`..ops.kernels.fused_dense_chain` (or its channel-major twin)
-with each BatchNorm folded into the preceding Dense at every forward
-(:func:`fold_dense_bn`, so weight updates are seen). ``train()`` mode keeps
+as one :func:`..ops.kernels.dense_chain` (the chain kernel, row- or
+channel-major, with its gradient) with each BatchNorm folded into the
+preceding Dense at every forward (:func:`fold_dense_bn`, so weight updates
+are seen). ``train()`` mode keeps
 the layer-by-layer modules, whose batch statistics do not fold. The
 parameter tree is the same either way.
 """
@@ -208,7 +209,7 @@ class MiniPointNet(nn.Module):
             return self.layer_3(self.layer_2(self.layer_1(x)))
         ws, bs = zip(*(fold_dense_bn(layer[0], layer[1]) for layer in
                        (self.layer_1, self.layer_2, self.layer_3)))
-        return kernels.fused_dense_chain(
+        return kernels.dense_chain(
             x.to(self.dtype or x.dtype).contiguous(), ws, bs,
             slopes=(0.2, 0.2, 0.2))
 
@@ -247,12 +248,11 @@ class ResDenseBlock(nn.Module):
         rw = rb = None
         if self.shortcut is not None:
             rw, rb = fold_dense_bn(self.shortcut[0], self.shortcut[1])
-        chain = kernels.fused_dense_chain_cn if cn else \
-            kernels.fused_dense_chain
-        return chain(x.to(self.dtype or x.dtype).contiguous(), (w0, w1),
-                     (b0, b1), rw, rb, slopes=(0.2, None),
-                     residual="identity" if rw is None else "proj",
-                     final_slope=0.2)
+        return kernels.dense_chain(
+            x.to(self.dtype or x.dtype).contiguous(), (w0, w1), (b0, b1),
+            rw, rb, slopes=(0.2, None),
+            residual="identity" if rw is None else "proj", final_slope=0.2,
+            cn=cn)
 
 
 class ResidualBlock2D(nn.Module):

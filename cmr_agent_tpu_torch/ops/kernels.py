@@ -32,12 +32,15 @@ wrapper                                   replaces (cmr_agent_tpu/ops/
 ========================================  ==================================
 
 Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn`,
-:class:`SegmentMeanCountImageFn` and :class:`SegmentSumImageFn` are
-``torch.autograd.Function``s whose forward and backward both go through the
-wrappers above (kernel or plain version by device), as the JAX package's
-``custom_vjp`` rules do. They look the wrappers up at call time, so
-swapping a wrapper for its plain version (``PLAIN``) swaps it in both
-directions.
+:class:`SegmentMeanCountImageFn`, :class:`SegmentSumImageFn` and
+:class:`SegmentSumCountImageCompactFn` are ``torch.autograd.Function``s
+whose forward and backward both go through the wrappers above (kernel or
+plain version by device), as the JAX package's ``custom_vjp`` rules do;
+:class:`DenseChainFn` (called through :func:`dense_chain`) launches the
+chain kernel forward and differentiates the plain chain backward, as the
+JAX package's chain VJP differentiates its pure-jnp mirror. They look the
+wrappers up at call time, so swapping a wrapper for its plain version
+(``PLAIN``) swaps it in both directions.
 """
 
 from __future__ import annotations
@@ -111,12 +114,17 @@ def _require(name: str, t: torch.Tensor, dtypes, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+# the kernels' own refusals (csrc/common.cuh), beside CUDA's error codes
+_REFUSALS = {-1: "unsupported argument",
+             -2: "the operands do not fit in a block's shared memory"}
+
+
 def _launch(fn_name: str, *args) -> None:
     lib = library()
     err = getattr(lib, fn_name)(*args)
     if err != 0:
-        msg = (lib.cmr_error_string(err).decode() if err > 0
-               else "unsupported argument")
+        msg = (lib.cmr_error_string(err).decode() if err > 0 else
+               _REFUSALS.get(err, "unsupported argument"))
         raise RuntimeError(f"{fn_name} failed: {msg} ({err})")
 
 
@@ -142,19 +150,31 @@ def segment_softmax_attend_plain(attn: torch.Tensor, values: torch.Tensor,
     give 0; idx outside [0, M) contributes nothing.
 
     ``return_stats=True`` returns ``(out, sums [B,M,F], gmax [B,F])``, the
-    residuals of :func:`segment_softmax_attend_backward`."""
+    residuals of :func:`segment_softmax_attend_backward`.
+
+    The shifted logits ``attn - gmax`` are rounded to the input's dtype,
+    as the kernels round them; ``exp`` is taken in f64 and rounded once to
+    that dtype (the correctly rounded exp, whatever vector library the
+    host's f32 ``exp`` would reach); the per-segment sums and weighted sums
+    are f64, and the output is rounded once. So the answer does not depend
+    on the host, and on the card it differs from the kernel's only where
+    ``expf`` is not correctly rounded and in the f32 rounding and order of
+    the sums."""
     b, n, f = attn.shape
     m = num_segments
+    dt = attn.dtype
     gmax = attn.amax(dim=1)
-    e = torch.exp(attn - gmax[:, None, :])
+    e = torch.exp((attn - gmax[:, None, :]).double()).to(dt).double()
     valid = (idx >= 0) & (idx < m)
     e = torch.where(valid[..., None], e, torch.zeros_like(e))
     seg = torch.where(valid, idx, torch.zeros_like(idx)).long()
     seg = seg[..., None].expand(b, n, f)
-    sums = attn.new_zeros((b, m, f)).scatter_add_(1, seg, e)
-    out = attn.new_zeros((b, m, f)).scatter_add_(1, seg, e * values)
-    out = out / sums.clamp_min(1e-30)
-    return (out, sums, gmax) if return_stats else out
+    sums = e.new_zeros((b, m, f)).scatter_add_(1, seg, e)
+    out = e.new_zeros((b, m, f)).scatter_add_(1, seg, e * values.double())
+    out = (out / sums.clamp_min(1e-30)).to(dt)
+    if return_stats:
+        return out, sums.to(dt), gmax
+    return out
 
 
 def segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
@@ -806,12 +826,54 @@ def fused_dense_chain_cn_plain(x: torch.Tensor, weights, biases,
     return res.transpose(1, 2).contiguous()
 
 
+def _pad_pow2(c: int) -> int:
+    """A width padded for the tensor-core kernel: 16, 32, 64 or 128."""
+    return next(p for p in (16, 32, 64, 128) if c <= p)
+
+
+def pack_chain_weights(mats, dtype) -> torch.Tensor:
+    """The chain kernel's weight buffer: ``mats`` (``[Cin, Cout]`` each,
+    the layers' then the projection's) cast to ``dtype``, one after the
+    other, each written once into a zeroed buffer through a view of its
+    slot.
+
+    bf16 (the tensor-core kernel): each matrix zero-padded to 16, 32, 64
+    or 128 in both dims and laid out in ``mma.m16n8k16`` B-fragment order,
+    ``[k-tile][n-tile][lane][2 registers][2 halves]``: lane ``4 g + t`` of
+    (k-tile ``kt``, n-tile ``nt``) holds ``W[16 kt + 8 r + 2 t + e, 8 nt +
+    g]`` in half ``e`` of register ``r``. f32 (the CUDA-core kernel): each
+    matrix row-major with its columns zero-padded to 64, or to 128 past 64.
+    """
+    bf16 = dtype == torch.bfloat16
+    shapes = []
+    for m in mats:
+        k, n = m.shape
+        shapes.append((_pad_pow2(k), _pad_pow2(n)) if bf16 else
+                      (k, 64 if n <= 64 else 128))
+    buf = torch.zeros(sum(k * n for k, n in shapes), dtype=dtype,
+                      device=mats[0].device)
+    off = 0
+    for m, (kp, np_) in zip(mats, shapes):
+        slot = buf[off:off + kp * np_]
+        off += kp * np_
+        k, n = m.shape
+        if not bf16:
+            slot.view(kp, np_)[:, :n].copy_(m)
+            continue
+        if (k, n) != (kp, np_):
+            m = torch.nn.functional.pad(m, (0, np_ - n, 0, kp - k))
+        # [kt][nt][g][t][r][e] seen as [kt][r][t][e][nt][g] = [k][n]
+        slot.view(kp // 16, np_ // 8, 8, 4, 2, 2).permute(
+            0, 4, 3, 5, 1, 2).copy_(m.reshape(kp // 16, 2, 4, 2, np_ // 8, 8))
+    return buf
+
+
 def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
                  slopes, residual, final_slope, out_max):
     """Launch the chain kernel of ``csrc/dense_chain.cu`` (layout ``cn``).
-    The weights (cast to ``x.dtype``) and the f32 ``[B, C]`` bias rows go
-    to the kernel packed, each in one buffer; a slope of None is passed as
-    1 (LeakyReLU with slope 1 is the identity, bit for bit)."""
+    The weights go packed (:func:`pack_chain_weights`) and the f32 ``[B,
+    C]`` bias rows in one buffer; a slope of None is passed as 1 (LeakyReLU
+    with slope 1 is the identity, bit for bit)."""
     b = x.shape[0]
     c0, n = (x.shape[1], x.shape[2]) if cn else (x.shape[2], x.shape[1])
     _check_chain(c0, weights, res_weight, pooled, slopes, residual)
@@ -828,7 +890,7 @@ def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
                              f"{(dims[i], dims[i + 1])}")
     dt, proj = x.dtype, residual == "proj"
     mats = list(weights) + ([res_weight] if proj else [])
-    wbuf = torch.cat([m.to(dt).reshape(-1) for m in mats]).contiguous()
+    wbuf = pack_chain_weights(mats, dt)
     rows = list(biases) + ([res_bias] if proj else [])
     bbuf = torch.cat([_batch_bias(v, b) for v in rows], dim=1).contiguous()
     prow = (pooled.to(dt).float().contiguous()
@@ -854,7 +916,12 @@ def fused_dense_chain(x: torch.Tensor, weights, biases, res_weight=None,
                       residual: str = "none", final_slope=None,
                       out_max: bool = False):
     """Kernel wrapper of :func:`fused_dense_chain_plain`: f32 or bf16
-    ``x [B,N,C0]``, 1-3 layers, every width at most 128."""
+    ``x [B,N,C0]``, 1-3 layers, every width at most 128, whose packed
+    weights fit in a block's shared memory (the kernel refuses others:
+    a RuntimeError). bf16 runs on the
+    tensor cores, f32 on the CUDA cores; both keep the weights in shared
+    memory for the whole launch. No gradient: :func:`dense_chain` adds
+    it."""
     args = (x, weights, biases, res_weight, res_bias, pooled, slopes,
             residual, final_slope, out_max)
     if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight,
@@ -873,7 +940,7 @@ def fused_dense_chain_cn(x: torch.Tensor, weights, biases, res_weight=None,
                          residual: str = "none", final_slope=None,
                          out_max: bool = False):
     """Kernel wrapper of :func:`fused_dense_chain_cn_plain`: f32 or bf16
-    ``x [B,C0,N]``, 1-3 layers, every width at most 128."""
+    ``x [B,C0,N]``, as :func:`fused_dense_chain`."""
     args = (x, weights, biases, res_weight, res_bias, pooled, slopes,
             residual, final_slope, out_max)
     if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight,
@@ -1033,6 +1100,88 @@ class SegmentSumImageFn(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         d_data = gather_rows(grad.contiguous(), ids)
         return d_data.to(ctx.dtype), None, None, None, None
+
+
+class SegmentSumCountImageCompactFn(torch.autograd.Function):
+    """:func:`segment_sum_count_image_compact`; counts carry no gradient,
+    and the sums' gradient reaches the rows through :func:`gather_rows`
+    (zero for routed-out rows), the input's rounding to its compute dtype
+    differentiated as the identity (pallas_kernels.py:882-893)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, h: int, w: int, compute_dtype=None):
+        sums, cnt = segment_sum_count_image_compact(data, ids, h, w,
+                                                    compute_dtype)
+        ctx.save_for_backward(ids)
+        ctx.dtype = data.dtype
+        ctx.mark_non_differentiable(cnt)
+        return sums, cnt
+
+    @staticmethod
+    def backward(ctx, grad_sums, _grad_counts):
+        (ids,) = ctx.saved_tensors
+        d_data = gather_rows(grad_sums.float().contiguous(), ids)
+        return d_data.to(ctx.dtype), None, None, None, None
+
+
+class DenseChainFn(torch.autograd.Function):
+    """:func:`fused_dense_chain` (or, with ``cn``, :func:`fused_dense_chain_cn`)
+    forward; its backward is autograd of the plain chain recomputed from
+    the saved inputs, as the JAX package's ``_chain_bwd`` takes ``jax.vjp``
+    of ``_dense_chain_reference`` (pallas_kernels.py:1171-1179,
+    :1371-1379). Gradients reach ``x``, every weight and bias, the
+    residual's weight and bias and ``pooled``; with ``out_max`` both
+    outputs carry one. The tensors come one by one (a tuple is invisible to
+    autograd): ``x``, the ``L`` weights, the ``L`` biases, then
+    ``res_weight``, ``res_bias`` and ``pooled`` (each may be None)."""
+
+    @staticmethod
+    def forward(ctx, cn: bool, n_layers: int, slopes, residual: str,
+                final_slope, out_max: bool, x, *tensors):
+        weights, biases = tensors[:n_layers], tensors[n_layers:2 * n_layers]
+        res_weight, res_bias, pooled = tensors[2 * n_layers:]
+        chain = fused_dense_chain_cn if cn else fused_dense_chain
+        ctx.save_for_backward(x, *tensors)
+        ctx.config = (cn, n_layers, slopes, residual, final_slope, out_max)
+        return chain(x, weights, biases, res_weight, res_bias, pooled,
+                     slopes=slopes, residual=residual,
+                     final_slope=final_slope, out_max=out_max)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        cn, n_layers, slopes, residual, final_slope, out_max = ctx.config
+        saved = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[6:]
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, wanted)]
+        x, tensors = leaves[0], leaves[1:]
+        plain = fused_dense_chain_cn_plain if cn else fused_dense_chain_plain
+        with torch.enable_grad():
+            outs = plain(x, tensors[:n_layers],
+                         tensors[n_layers:2 * n_layers],
+                         *tensors[2 * n_layers:], slopes=slopes,
+                         residual=residual, final_slope=final_slope,
+                         out_max=out_max)
+        outs = outs if out_max else (outs,)
+        inputs = [t for t, need in zip(leaves, wanted) if need]
+        got = iter(torch.autograd.grad(outs, inputs, grads,
+                                       allow_unused=True) if inputs else ())
+        d = [next(got) if need else None for need in wanted]
+        return (None,) * 6 + tuple(d)
+
+
+def dense_chain(x: torch.Tensor, weights, biases, res_weight=None,
+                res_bias=None, pooled=None, slopes=(),
+                residual: str = "none", final_slope=None,
+                out_max: bool = False, cn: bool = False):
+    """The fused dense chain with its gradient: :class:`DenseChainFn` on
+    :func:`fused_dense_chain`'s arguments (``cn`` picks the channel-major
+    kernel). What the fused eval stacks call."""
+    if len(weights) != len(biases):
+        raise ValueError("one bias per layer")
+    return DenseChainFn.apply(cn, len(weights), tuple(slopes), residual,
+                              final_slope, out_max, x, *weights, *biases,
+                              res_weight, res_bias, pooled)
 
 
 WRAPPERS = (segment_softmax_attend, gather_rows, knn,

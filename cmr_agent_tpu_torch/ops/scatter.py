@@ -28,14 +28,14 @@ def scatter_mean_image(feat: torch.Tensor, pixel_ids: torch.Tensor,
     (``scatter.py:134-188``): invalid points go to id ``h*w`` and are
     routed out. ``mode`` "flat" is the pixel-id raster kernel (with its
     gradient); "compact" the compacting raster kernel, for a whole,
-    unordered cloud (no gradient: eval episodes only). ``compute_dtype``
+    unordered cloud (with its gradient, the row gather of the sums'). ``compute_dtype``
     None/f32, bf16 (one rounding of the inputs, f32 sums) or int8 (absmax
     quantised, exact integer sums)."""
     ids = torch.where(valid, pixel_ids,
                       torch.full_like(pixel_ids, h * w)).to(torch.int32)
     ids = ids.contiguous()
     if mode == "compact":
-        sums, counts = kernels.segment_sum_count_image_compact(
+        sums, counts = kernels.SegmentSumCountImageCompactFn.apply(
             feat.contiguous(), ids, h, w, compute_dtype)
         means = sums / counts.clamp_min(1.0)[..., None]
     elif mode == "flat":

@@ -20,8 +20,51 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _softmax_attend_f64(attn, values, idx, m):
+    """numpy f64 recomputation of the segment softmax-attend (global max,
+    routed-out ids dropped, empty segments 0)."""
+    a, v = attn.astype(np.float64), values.astype(np.float64)
+    e = np.exp(a - a.max(axis=1, keepdims=True))
+    b, _, f = a.shape
+    sums = np.zeros((b, m, f))
+    acc = np.zeros((b, m, f))
+    for i in range(b):
+        ok = (idx[i] >= 0) & (idx[i] < m)
+        np.add.at(sums[i], idx[i][ok], e[i][ok])
+        np.add.at(acc[i], idx[i][ok], e[i][ok] * v[i][ok])
+    return acc / np.maximum(sums, 1e-30)
+
+
+def _report_mismatch(which, got, want, exact):
+    """Print what a failed comparison needs to name its cause: the
+    assertion, the largest error and its index, each side against an f64
+    recomputation, and the host's threading and vector path."""
+    import os
+    err = np.abs(got - want)
+    at = np.unravel_index(np.argmax(err), err.shape)
+    port_err = np.abs(got - exact).max()
+    ref_err = np.abs(want - exact).max()
+    tol = 1e-6 + 1e-5 * np.abs(exact)
+    port_off = bool((np.abs(got - exact) > tol).any())
+    ref_off = bool((np.abs(want - exact) > tol).any())
+    side = {(True, False): "the port", (False, True): "the JAX side",
+            (True, True): "both", (False, False): "neither"}[
+        (port_off, ref_off)]
+    print(f"[softmax_report] assertion={which} max_err={err.max():.3e} "
+          f"at={tuple(int(i) for i in at)} got={got[at]!r} "
+          f"want={want[at]!r} f64={exact[at]!r}")
+    print(f"[softmax_report] port_vs_f64={port_err:.3e} "
+          f"jax_vs_f64={ref_err:.3e} off={side}")
+    print(f"[softmax_report] threads={torch.get_num_threads()} "
+          f"cpu_capability={torch.backends.cpu.get_cpu_capability()} "
+          f"xdist_worker={os.environ.get('PYTEST_XDIST_WORKER')}")
+    print(torch.__config__.parallel_info())
+
+
 def test_segment_softmax_attend_plain_matches_jax():
-    """rtol 1e-5: both use the global max; sums are reordered (f32)."""
+    """rtol 1e-5: both use the global max; sums are reordered (f32). On a
+    mismatch the test prints which side an f64 recomputation finds off,
+    then fails."""
     rng = np.random.default_rng(0)
     b, n, m, f = 2, 700, 37, 16
     attn = (rng.normal(size=(b, n, f)) * 3).astype(np.float32)
@@ -33,8 +76,14 @@ def test_segment_softmax_attend_plain_matches_jax():
     want = pk.segment_softmax_attend_fused(
         jnp.asarray(attn), jnp.asarray(values), jnp.asarray(idx), m,
         tile=128, interpret=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-6)
+    try:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+    except AssertionError:
+        _report_mismatch("port vs the Pallas kernel (interpret)",
+                         got.numpy(), np.asarray(want),
+                         _softmax_attend_f64(attn, values, idx, m))
+        raise
     assert np.all(got.numpy()[:, m - 5:] == 0.0)
     # the XLA fallback (per-segment max) on in-range ids agrees too
     ok = np.clip(idx, 0, m - 1)
@@ -42,7 +91,12 @@ def test_segment_softmax_attend_plain_matches_jax():
         jnp.asarray(attn[i]), jnp.asarray(values[i]), jnp.asarray(ok[i]), m))
         for i in range(b)])
     got_ok = kernels.segment_softmax_attend(_t(attn), _t(values), _t(ok), m)
-    np.testing.assert_allclose(got_ok.numpy(), xla, rtol=1e-5, atol=1e-6)
+    try:
+        np.testing.assert_allclose(got_ok.numpy(), xla, rtol=1e-5, atol=1e-6)
+    except AssertionError:
+        _report_mismatch("port vs the XLA fallback", got_ok.numpy(), xla,
+                         _softmax_attend_f64(attn, values, ok, m))
+        raise
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
