@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase geo_train --repeat 3   # one phase alone
+    python3 chip_smoke.py --phase segment_sums           # kernels 5 and 7
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -26,7 +27,11 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
 5. the training path's kernels (segment sum, softmax-attend backward,
    pixel-id image raster in f32 and bf16) at the training shapes against
    their plain versions, the backward kernels also against
-   ``torch.autograd`` of the plain forward, with the same timings;
+   ``torch.autograd`` of the plain forward, with the same timings; the
+   segment sum also bit-equal to a second launch, on the bucketing's edge
+   cases (one segment taking 90% of the rows, M = 1, empty end segments,
+   every row routed out, samples drawn differently) too, with its device
+   time;
 6. the geo train step (``train.train_geo``) at KITTI width, B=8, f32:
    launch counts of one step, its peak device memory, the median steps/s
    with dropout on, a profile of one step, then its gradients and three
@@ -38,10 +43,11 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
    update times and a profile of one rollout; then an ``expert_beta=1.0``
    rollout and one update against their plain-kernel twins;
 8. the coarse-to-fine path's two kernels (the shared-data segment sum of
-   the cost volume's warp, with a dead hypothesis, and the mask-pack
-   compaction with counts above and below its budget, f32 and bf16) at
-   their KITTI shapes against their plain versions, with the same
-   timings;
+   the cost volume's warp, with a dead hypothesis, bit-equal to a second
+   launch and on the segment sum's edge cases as hypotheses too; and the
+   mask-pack compaction with counts above and below its budget, f32 and
+   bf16) at their KITTI shapes against their plain versions, with the
+   same timings;
 9. ``IterModel`` at KITTI width, B=8, f32 (729 hypotheses in 3 chunks):
    launches, ms per forward, peak memory, a profile, and its logits and
    decoded pose against the plain-kernel twin;
@@ -95,11 +101,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 
+from cmr_agent_tpu_torch.tools.segment_turns import capture
 from cmr_agent_tpu_torch.utils.profiling import cuda_ms, profile_device
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor-core)
@@ -266,9 +274,11 @@ def check_kernels(torch, kernels, dev):
 
 def print_rows(rows) -> None:
     for name, r in rows.items():
+        device = {k: fmt_ms(r[k]) for k in ("device_ms", "host_us")
+                  if k in r}
         line("kernel", name=name, shape=repr(r["shape"]), tol=repr(r["tol"]),
              max_abs_err=r["max_abs_err"], kernel_ms=f"{r['ms']:.5f}",
-             plain_ms=f"{r['plain_ms']:.5f}",
+             **device, plain_ms=f"{r['plain_ms']:.5f}",
              bound_us=f"{r['bound'][0] * 1e3:.2f}({r['bound'][1]})",
              library_ms=("none" if r["library_ms"] is None
                          else f"{r['library_ms']:.5f}"))
@@ -385,7 +395,8 @@ FUSION_KERNELS = ("fused_dense_chain", "fused_dense_chain_cn",
 PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
                      "normalise_kernel", "gather_rows_kernel", "knn_kernel",
                      "raster_project_kernel", "raster_finalise_kernel",
-                     "segment_sum_kernel", "softmax_backward_kernel",
+                     "segment_bucket_kernel", "segment_reduce_kernel",
+                     "softmax_backward_kernel",
                      "raster_image_kernel", "segment_sum_shared_kernel",
                      "mask_count_kernel", "mask_pack_kernel",
                      "chain_mma_kernel", "chain_f32_kernel",
@@ -422,29 +433,188 @@ def profile_call(torch, fn, unprofiled_ms=None, **tags) -> None:
         line("profile_top", ms=f"{ms:.3f}", name=repr(k[:90]))
 
 
-def check_train_kernels(torch, kernels, dev):
-    """Phase 5: the training path's kernels vs their plain versions at the
-    training shapes (and the backward kernels vs torch.autograd of the
-    plain forward)."""
-    gen, randn, randint = rand_factory(torch, 4321, dev)
-    rows = {}
+def routed_out(idx, m):
+    """A copy of ``idx [B, N]`` with rows routed out both ways (>= M, -1)."""
+    out = idx.clone()
+    out[:, :64] = m + 3
+    out[:, 64:128] = -1
+    return out
 
-    def routed_out(idx, m):
-        """A copy of ``idx`` with rows routed out both ways (>= M, -1)."""
-        out = idx.clone()
-        out[:, :64] = m + 3
-        out[:, 64:128] = -1
-        return out
 
-    # 5. segment sum (the gather's backward): points -> nodes, the knn
-    #    neighbourhoods -> nodes, nodes -> proxies
+def grid_rows(torch, gen, *shape):
+    """Rows of multiples of 1/64 in [-4, 4]: their f32 sums are exact in
+    any order up to 2^16 rows a segment, so a comparison on them checks the
+    routing and bucketing alone, whatever a segment's size (a sum of 900
+    N(0, 1) rows in two orders already differs past rtol / atol 1e-5 about
+    once in a hundred)."""
+    return torch.randint(-256, 257, shape, generator=gen).float() / 64
+
+
+def segment_id_maps(torch, gen, b: int, n: int, m: int):
+    """The id maps the segment sums' bucketing is sensitive to, drawn as
+    ``tests/test_torch_segment_sums.py`` draws them: ``{kind: (idx [b, n]
+    int32 on the CPU, M)}`` with one segment taking 90% of the rows, M = 1,
+    the first and last two segments empty, every row routed out by -1 and
+    by >= M, and two samples drawn differently (uniform; the upper half
+    with a quarter routed out)."""
+    def ids(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+    skew = ids(0, m, b, n)
+    skew[torch.rand(b, n, generator=gen) < 0.9] = m // 2
+    per_sample = ids(0, m, b, n)
+    per_sample[1] = ids(m // 2, m, n)
+    per_sample[1][torch.rand(n, generator=gen) < 0.25] = -1
+    return {"skew": (skew, m), "one_segment": (ids(-1, 2, b, n), 1),
+            "empty_ends": (ids(2, m - 2, b, n), m),
+            "all_minus_one": (torch.full((b, n), -1, dtype=torch.int32), m),
+            "all_past_m": (m + ids(0, 5, b, n), m),
+            "per_sample": (per_sample, m)}
+
+
+def hold_segment_case(torch, fn, plain, compared, kind, data, grid, ix,
+                      m):
+    """One edge case of the segment sum ``fn`` (ids ``ix [B, N]`` or ``[B,
+    P, N]``): on :func:`grid_rows` within rtol / atol 1e-5 of ``plain``,
+    with the samples or hypotheses whose rows are all routed out all zeros;
+    on N(0, 1) rows bit-equal across two launches (counted in
+    ``compared``)."""
+    got = fn(grid, ix, m)
+    want = plain(grid, ix, m)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    dead = ((ix < 0) | (ix >= m)).all(dim=-1)
+    assert not got[dead].any(), kind
+    first = fn(data, ix, m)
+    assert torch.equal(fn(data, ix, m), first), kind
+    compared.append(kind)
+    del first
+    t_ms = cuda_ms(lambda: fn(data, ix, m), 3)
+    line("segment_case", kernel=fn.__name__, kind=kind,
+         shape="x".join("[" + ",".join(map(str, t.shape)) + "]"
+                        for t in (data, ix)) + f"->m={m}",
+         dead=int(dead.sum()), max_abs_err=(got - want).abs().max().item(),
+         same_bits=True, kernel_ms=f"{t_ms:.5f}")
+
+
+def geo_step_segment_calls(torch, kernels, serve, kitti_config, dev):
+    """Kernel 5's calls in one geo train step (KITTI width, B=8, f32, seed
+    0): the gradients of the step's row gathers, with the ids the
+    synthetic batch and the model give them."""
+    from cmr_agent_tpu_torch.train import train_geo
+    cfg = kitti_config()
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
+    step = train_geo.make_geo_train_step(cfg)
+    state = train_geo.create_geo_state(cfg, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = capture("segment_sum", lambda: step(state, batch, gen))
+    del state, batch
+    torch.cuda.empty_cache()
+    return calls
+
+
+def warp_segment_calls(torch, kernels, serve, kitti_config):
+    """Kernel 7's calls in one ``IterModel`` forward of the flagship
+    workload (f32): the cost volume's ``[feat | score | 1]`` rows and the
+    pixel ids its warp projects under each eval chunk of hypotheses."""
+    from cmr_agent_tpu_torch.train.train_iter import iter_model_state
+    cfg, batch, (geo, iter_model, _), _ = flagship_workload(
+        torch, serve, kitti_config, "float32")
+    with torch.no_grad():
+        st = iter_model_state(geo(batch), batch)
+        calls = capture("segment_sum_shared",
+                        lambda: iter_model(st, with_loss=False))
+    del st, geo, iter_model, batch
+    torch.cuda.empty_cache()
+    return calls
+
+
+def hold_path_calls(torch, kernels, name: str, calls, names, library=()):
+    """Kernel ``name`` on the calls a path made (``segment_turns.capture``):
+    each call's rows rounded to multiples of 1/64 in [-4, 4] after scaling
+    by their largest magnitude (sums exact in any order) within rtol / atol
+    1e-5 of the plain version, its own rows bit-equal across two launches,
+    and how its ids spread over the segments (``[segment_path]``); then
+    all calls in turn: wrapper time, device time of the kernels ``names``,
+    the plain version's and ``library``'s (one PyTorch call per call, as
+    argument-free callables) (``[segment_path_total]``)."""
+    fn, plain = getattr(kernels, name), kernels.PLAIN[name]
+    for i, (data, ix, m) in enumerate(calls):
+        grid = torch.round(data / data.abs().amax().clamp_min(1e-30)
+                           * 256) / 64
+        got, want = fn(grid, ix, m), plain(grid, ix, m)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = (got - want).abs().max().item()
+        del got, want, grid
+        first = fn(data, ix, m)
+        assert torch.equal(fn(data, ix, m), first), (name, i)
+        del first
+        flat = ix.reshape(-1, ix.shape[-1]).long()
+        valid = (flat >= 0) & (flat < m)
+        counts = torch.zeros(flat.shape[0], m + 1, dtype=torch.long,
+                             device=flat.device).scatter_add_(
+            1, torch.where(valid, flat, m), torch.ones_like(flat))[:, :m]
+        line("segment_path", kernel=name, call=i,
+             shape="x".join("[" + ",".join(map(str, t.shape)) + "]"
+                            for t in (data, ix)) + f"->m={m}",
+             rows_landed=int(valid.sum()), segments_filled=int(
+                 (counts > 0).sum()), max_rows_per_segment=int(counts.max()),
+             max_abs_err=err, same_bits=True,
+             kernel_ms=f"{cuda_ms(lambda: fn(data, ix, m), 5):.5f}")
+        del counts, flat, valid
+        torch.cuda.empty_cache()
+
+    def each(f):
+        return lambda: [f(data, ix, m) for data, ix, m in calls]
+    lib = (f"{cuda_ms(lambda: [f() for f in library], 5):.5f}" if library
+           else "none")
+    line("segment_path_total", kernel=name, calls=len(calls),
+         kernel_ms=f"{cuda_ms(each(fn), 5):.5f}",
+         device_ms=fmt_ms(kernel_device_ms(each(fn), names, iters=3)),
+         plain_ms=f"{cuda_ms(each(plain), 2):.5f}", library_ms=lib)
+
+
+def scatter_add_library(torch, calls):
+    """Kernel 5's library call for each of ``calls``: ``scatter_add_`` of
+    the rows into a zeroed ``[B, M + 1, F]`` whose last row takes the
+    routed-out ones."""
+    def call(data, idx, m):
+        b, n, f = data.shape
+        seg = torch.where((idx >= 0) & (idx < m), idx, m).long()
+        seg = seg[..., None].expand(b, n, f)
+        return lambda: torch.zeros(b, m + 1, f, device=data.device
+                                   ).scatter_add_(1, seg, data)
+    return [call(*c) for c in calls]
+
+
+# the kernels of kernels 5 and 7, by name, for their device time
+SEGMENT_SUM_KERNEL_NAMES = ("segment_bucket_kernel", "segment_reduce_kernel")
+SEGMENT_SUM_SHARED_KERNEL_NAMES = ("segment_sum_shared_kernel",)
+# (B, N, M, F) of the bucketing cases: a training shape, then F = 3 and
+# F = 66 with N a multiple of no chunk
+SEGMENT_CASE_SHAPES = ((2, N_PT, N_NODE, F), (2, 1000, 37, 3),
+                       (2, 77, 19, F + 2))
+
+
+def check_segment_sum(torch, kernels, dev, randn, randint, path_calls):
+    """Kernel 5 (the row gather's backward) at the training shapes (points
+    -> nodes, the knn neighbourhoods -> nodes, nodes -> proxies) with and
+    without rows routed out, within rtol / atol 1e-5 of its plain version
+    and bit-equal to a second launch, the gather's VJP against autograd of
+    the plain gather; then :func:`segment_id_maps` at
+    ``SEGMENT_CASE_SHAPES``, on :func:`grid_rows` against the plain version
+    and on N(0, 1) rows launch against launch; then the geo train step's
+    own calls, ``path_calls`` (:func:`geo_step_segment_calls`). Returns
+    the rows of the three shapes."""
+    rows, compared = {}, []
     for n, m in ((N_PT, N_NODE), (N_NODE * KNN_K, N_NODE), (N_NODE, N_PROXY)):
         data, idx = randn(B, n, F), randint(0, m, B, n)
         for ix in (idx, routed_out(idx, m)):
             got = kernels.segment_sum(data, ix, m)
             want = kernels.segment_sum_plain(data, ix, m)
-            # f32 atomics add in another order on every run
+            # the kernel adds each segment's rows in ascending order, the
+            # plain version's scatter_add_ in the order its atomics land
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            assert torch.equal(kernels.segment_sum(data, ix, m), got), (n, m)
+            compared.append((n, m))
         err = (got - want).abs().max().item()
         table = randn(B, m, F).requires_grad_()
         table_p = table.detach().clone().requires_grad_()
@@ -455,17 +625,48 @@ def check_train_kernels(torch, kernels, dev):
                                    atol=1e-5)
         idx64 = idx.long()[..., None].expand(B, n, F)
         r = dict(
-            max_abs_err=err, tol="rtol 1e-5 atol 1e-5 (f32 atomics reorder "
-                                 "sums); gather VJP vs autograd likewise",
+            max_abs_err=err, tol="rtol 1e-5 atol 1e-5 (another order of "
+                                 "f32 sums); gather VJP vs autograd "
+                                 "likewise; bit-equal across launches",
             shape=f"[{B},{n},{F}]->[{B},{m},{F}]",
             ms=cuda_ms(lambda: kernels.segment_sum(data, idx, m), 20),
+            device_ms=kernel_device_ms(
+                lambda: kernels.segment_sum(data, idx, m),
+                SEGMENT_SUM_KERNEL_NAMES),
+            host_us=host_us(torch, lambda: kernels.segment_sum(data, idx, m)),
             plain_ms=cuda_ms(lambda: kernels.segment_sum_plain(data, idx, m),
                              10),
             library_ms=cuda_ms(lambda: torch.zeros(B, m, F, device=dev)
                                .scatter_add_(1, idx64, data), 20),
             bound=bound(B * (n * F * 4 + n * 4 + m * F * 4), B * n * F))
-        rows.setdefault("segment_sum", r)
+        rows[f"segment_sum[{n}->{m}]"] = r
         print_rows({f"segment_sum[{n}->{m}]": r})
+    gen = torch.Generator().manual_seed(55)
+    for b, n, m_, f in SEGMENT_CASE_SHAPES:
+        data = torch.randn(b, n, f, generator=gen).to(dev)
+        grid = grid_rows(torch, gen, b, n, f).to(dev)
+        for kind, (ix, m) in segment_id_maps(torch, gen, b, n, m_).items():
+            hold_segment_case(torch, kernels.segment_sum,
+                              kernels.segment_sum_plain, compared, kind,
+                              data, grid, ix.to(dev), m)
+    line("segment_sum_bits", launches_compared=len(compared),
+         bit_equal=len(compared))
+    hold_path_calls(torch, kernels, "segment_sum", path_calls,
+                    SEGMENT_SUM_KERNEL_NAMES,
+                    scatter_add_library(torch, path_calls))
+    return rows
+
+
+def check_train_kernels(torch, kernels, serve, kitti_config, dev):
+    """Phase 5: the training path's kernels vs their plain versions at the
+    training shapes (and the backward kernels vs torch.autograd of the
+    plain forward)."""
+    gen, randn, randint = rand_factory(torch, 4321, dev)
+    # 5. segment sum (the gather's backward)
+    sum_rows = check_segment_sum(
+        torch, kernels, dev, randn, randint,
+        geo_step_segment_calls(torch, kernels, serve, kitti_config, dev))
+    rows = {"segment_sum": sum_rows[f"segment_sum[{N_PT}->{N_NODE}]"]}
 
     # 6. softmax-attend backward, points -> nodes
     n, m = N_PT, N_NODE
@@ -666,10 +867,12 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
         scale = want.abs().max().item()
         diff = (g - want).abs().max().item()
         floor = max((gn[n] - want).abs().max().item() for gn in nudged)
-        # f32 atomics reorder the segment sums of every backward: within
-        # 1e-3 max|g|, or within 4x what a last-bit nudge of the input
-        # moves. The atomics' order is one more draw of that noise on every
-        # run: one run saw a single tensor of 995 at 1.37e-3 max|g|, 6.9x
+        # The twins sum in other orders: kernel 1's f32 atomics, the plain
+        # versions' scatter_add_ atomics and cuDNN's convolution backward
+        # change their order on every run, kernel 5 adds in ascending row
+        # order. Within 1e-3 max|g|, or within 4x what a last-bit nudge of
+        # the input moves. The run-to-run order is one more draw of that
+        # noise: one run saw a single tensor of 995 at 1.37e-3 max|g|, 6.9x
         # its (then single) nudge, so at most 1% of the tensors may land
         # past the rule, within 2e-3 max|g|.
         tol = max(1e-3 * scale, 4.0 * floor) + 1e-7
@@ -696,8 +899,8 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
          loss_rel_diff=",".join(f"{v:.2e}" for v in rel))
     for o in outliers:
         assert o[1] <= 2e-3 * o[2] + 1e-7, o
-    # step 1 differs only by atomic order; Adam's normalised update can turn
-    # a near-zero gradient element's sign into a full lr step after it
+    # step 1 differs only by summation order; Adam's normalised update can
+    # turn a near-zero gradient element's sign into a full lr step after it
     assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
     assert len(outliers) <= len(grads["kernels"]) // 100, outliers
 
@@ -811,34 +1014,50 @@ FLAGSHIP_OPTS = dict(hypotheses=13, iter_iters=2, refine_rounds=1,
 ITER_FORWARDS, FINE_STAGES, VERIFICATIONS = 14, 16, 19
 
 
-def check_compose_kernels(torch, kernels, dev):
-    """Phase 8: the shared-data segment sum and the mask-pack compaction
-    vs their plain versions at the coarse-to-fine path's shapes."""
-    gen, randn, randint = rand_factory(torch, 777, dev)
-    rows = {}
+def check_segment_sum_shared(torch, kernels, dev, randn, randint,
+                             path_calls):
+    """Kernel 7 at one eval chunk of the cost volume's warp: [feat | score
+    | 1] rows of the top-K compacted cloud, a pixel id per (hypothesis,
+    row); about 40% of the rows land, hypothesis 1 sees nothing, ids >= M
+    and -1 both route out. Within rtol / atol 1e-5 of its plain version,
+    the dead hypothesis all zeros, bit-equal to a second launch; then
+    :func:`segment_id_maps` stacked as hypotheses (and M = 1) at the
+    shapes of ``SEGMENT_CASE_SHAPES`` (the second and third take the
+    one-element stores: M * F is no multiple of 4); then the warp's own
+    calls in one ``IterModel`` forward, which ``path_calls()`` captures
+    (:func:`warp_segment_calls`) once the rows above are measured. Prints
+    and returns its row."""
     npix, f = IMG_H * IMG_W, F + 2
-
-    # 7. one eval chunk of the cost volume's warp: [feat | score | 1] rows
-    #    of the top-K compacted cloud, a pixel id per (hypothesis, row);
-    #    about 40% of the rows land, hypothesis 1 sees nothing, ids >= M and
-    #    -1 both route out
     data = randn(B, WARP_K, f)
     idx = randint(0, int(npix * 2.5), B, CHUNK_P, WARP_K)
     idx[:, 1] = npix
     idx[:, 2, :100] = -1
     got = kernels.segment_sum_shared(data, idx, npix)
     want = kernels.segment_sum_shared_plain(data, idx, npix)
-    # f32 atomics add in another order on every run
+    # the kernel adds each pixel's rows in ascending order, the plain
+    # version's scatter_add_ in the order its atomics land
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert not got[:, 1].any()
     err = (got - want).abs().max().item()
+    del want
+    assert torch.equal(kernels.segment_sum_shared(data, idx, npix), got)
+    compared = ["phase 8"]
     landed = int(((idx >= 0) & (idx < npix)).sum().item())
-    del got, want
+    del got
     ms = cuda_ms(lambda: kernels.segment_sum_shared(data, idx, npix), 5)
+    device_ms = kernel_device_ms(
+        lambda: kernels.segment_sum_shared(data, idx, npix),
+        SEGMENT_SUM_SHARED_KERNEL_NAMES, iters=3)
     plain_ms = cuda_ms(lambda: kernels.segment_sum_shared_plain(
         data, idx, npix), 2)
-    zero_ms = cuda_ms(lambda: torch.zeros((B, CHUNK_P, npix, f), device=dev),
-                      5)
+    # a bare write of the output, for scale, and the kernel with every row
+    # routed out (the ids read and bucketed, the slabs written as zeros)
+    write_ms = cuda_ms(lambda: torch.zeros((B, CHUNK_P, npix, f),
+                                           device=dev), 5)
+    dead_idx = torch.full_like(idx, npix)
+    dead_ms = cuda_ms(lambda: kernels.segment_sum_shared(data, dead_idx,
+                                                         npix), 5)
+    del dead_idx
     # the one library call: index_add_ of the rows repeated per hypothesis
     # into the flattened output (a spill row takes the routed-out ones)
     maps = torch.arange(B * CHUNK_P, device=dev).reshape(B, CHUNK_P, 1)
@@ -849,17 +1068,54 @@ def check_compose_kernels(torch, kernels, dev):
         (B * CHUNK_P * npix + 1, f), device=dev).index_add_(0, flat, src), 2)
     del flat, src
     out_bytes = B * CHUNK_P * npix * f * 4
-    rows["segment_sum_shared"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        tol="rtol 1e-5 atol 1e-5 (f32 atomics reorder sums)",
+    row = dict(
+        max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        host_us=host_us(torch, lambda: kernels.segment_sum_shared(
+            data, idx, npix), 10),
+        library_ms=library_ms,
+        tol="rtol 1e-5 atol 1e-5 (another order of f32 sums); dead "
+            "hypothesis zeros; bit-equal across launches",
         shape=f"[{B},{WARP_K},{f}] x idx [{B},{CHUNK_P},{WARP_K}] -> "
               f"[{B},{CHUNK_P},{npix},{f}] ({out_bytes / 1e9:.2f} GB), "
-              f"{landed} of {idx.numel()} rows land; zeroing alone "
-              f"{zero_ms:.3f} ms",
+              f"{landed} of {idx.numel()} rows land; a bare write of the "
+              f"output {write_ms:.3f} ms, every row routed out "
+              f"{dead_ms:.3f} ms",
         bound=bound(data.numel() * 4 + idx.numel() * 4 + out_bytes,
                     float(landed) * f))
     del data, idx
     torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(77)
+    shapes = ((2, WARP_K, npix, f),) + SEGMENT_CASE_SHAPES[1:]
+    for b, n, m_, f_ in shapes:
+        data = torch.randn(b, n, f_, generator=gen).to(dev)
+        grid = grid_rows(torch, gen, b, n, f_).to(dev)
+        maps = segment_id_maps(torch, gen, b, n, m_)
+        stacked = torch.stack([ix for ix, m in maps.values() if m == m_], 1)
+        cases = {"hypotheses": (stacked, m_),
+                 "one_segment": (maps["one_segment"][0][:, None], 1)}
+        for kind, (ix, m) in cases.items():
+            hold_segment_case(torch, kernels.segment_sum_shared,
+                              kernels.segment_sum_shared_plain, compared,
+                              kind, data, grid, ix.to(dev).contiguous(), m)
+    print_rows({"segment_sum_shared": row})
+    line("segment_sum_shared_bits", launches_compared=len(compared),
+         bit_equal=len(compared))
+    del data, grid
+    torch.cuda.empty_cache()
+    hold_path_calls(torch, kernels, "segment_sum_shared", path_calls(),
+                    SEGMENT_SUM_SHARED_KERNEL_NAMES)
+    return row
+
+
+def check_compose_kernels(torch, kernels, serve, kitti_config, dev):
+    """Phase 8: the shared-data segment sum and the mask-pack compaction
+    vs their plain versions at the coarse-to-fine path's shapes."""
+    gen, randn, randint = rand_factory(torch, 777, dev)
+    # 7. one eval chunk of the cost volume's warp, then the warp's own calls
+    rows = {"segment_sum_shared": check_segment_sum_shared(
+        torch, kernels, dev, randn, randint,
+        lambda: warp_segment_calls(torch, kernels, serve, kitti_config))}
 
     # 11. the episode's compaction: overlap counts below and above the
     #     budget, f32 and bf16 features; exact
@@ -890,7 +1146,7 @@ def check_compose_kernels(torch, kernels, dev):
               f"{kept} rows kept",
         bound=bound(B * N_PT + kept * (F * 4 + 12)
                     + B * RASTER_K * (F * 4 + 12), 0.0))
-    print_rows(rows)
+    print_rows({"mask_compact_pack": rows["mask_compact_pack"]})
     return rows
 
 
@@ -945,7 +1201,8 @@ def run_itermodel(torch, kernels, serve, kitti_config):
                      phase="itermodel")
         with plain_kernels(kernels):
             want = forward()
-    # the warp's per-pixel sums are f32 atomics in another order; the
+    # the warp's per-pixel sums run in ascending row order in the kernel and
+    # in the order of the plain version's scatter_add_ atomics; the
     # tolerance the CPU tests hold the two JAX warp paths to
     torch.testing.assert_close(logits, want["cost_volume_logits"], rtol=2e-4,
                                atol=2e-5)
@@ -1231,10 +1488,13 @@ def randomise_module_(torch, module, gen) -> None:
 CHAIN_KERNEL_NAMES = ("chain_mma_kernel", "chain_f32_kernel")
 
 
-def kernel_device_ms(fn, names, iters: int = 10) -> float:
+def kernel_device_ms(fn, names, iters: int = 10):
     """Device time per call of the kernels whose names contain one of
     ``names`` (``torch.profiler``), over ``iters`` calls after a warm-up:
-    the kernel alone, without the wrapper's own PyTorch ops."""
+    the kernel alone, without the wrapper's own PyTorch ops. None, with a
+    ``[profiler]`` line, where three profiles in a row record no such
+    kernel (it happened once late in a whole run: every device row was
+    missing); the wrapper's CUDA-event time is measured apart."""
     fn()
     for _ in range(3):   # the profiler now and then returns no rows
         by_name, _ = profile_device(fn, iters=iters)
@@ -1242,7 +1502,14 @@ def kernel_device_ms(fn, names, iters: int = 10) -> float:
                  if any(n in k for n in names))
         if ms > 0:
             return ms / iters
-    raise AssertionError(f"no device time for {names}: {sorted(by_name)}")
+    line("profiler", no_device_time_for=",".join(names),
+         device_rows=len(by_name))
+    return None
+
+
+def fmt_ms(ms) -> str:
+    """A time in ms, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def host_us(torch, fn, iters: int = 50) -> float:
@@ -1307,7 +1574,7 @@ def chain_row(torch, kernels, name, args, kw, library, label, dt, shape):
     pack_us = host_us(torch,
                       lambda: kernels.pack_chain_weights(mats, x.dtype))
     line("chain_times", name=f"{name}[{label}]", ms=f"{row['ms']:.5f}",
-         device_ms=f"{row['device_ms']:.5f}",
+         device_ms=fmt_ms(row["device_ms"]),
          wrapper_host_us=f"{wrapper_us:.1f}", pack_host_us=f"{pack_us:.1f}")
     return row
 
@@ -1352,10 +1619,21 @@ def check_chain_backward(torch, kernels, cn: bool, args, kw, label):
     assert diff == 0.0, (label, diff)
 
 
-def print_ptxas(build, stem: str, names) -> None:
+def chain_variant(entry_line: str) -> str:
+    return "<cn>" if "ILb1E" in entry_line else "<nc>"
+
+
+def int_template(entry_line: str) -> str:
+    """``<G>`` of a kernel templated on one int (mangled ``ILiGE``)."""
+    found = re.search(r"ILi(\d+)E", entry_line)
+    return f"<{found.group(1)}>" if found else ""
+
+
+def print_ptxas(build, stem: str, names, variant=chain_variant) -> None:
     """Registers, stack, shared memory and spills of the kernels of
     ``csrc/<stem>.cu`` whose entry names contain one of ``names``, from
-    the compiler's report in ``build.log``."""
+    the compiler's report in ``build.log``; ``variant`` names a template
+    instance from its entry line."""
     log = (build.library_path().parent / "build.log").read_text()
     part = log.split(f"== {stem}.cu")[1].split("\n== ")[0]
     entry = None
@@ -1363,7 +1641,7 @@ def print_ptxas(build, stem: str, names) -> None:
         if "Compiling entry function" in ln:
             entry = next((n for n in names if n in ln), None)
             if entry is not None:
-                entry += "<cn>" if "ILb1E" in ln else "<nc>"
+                entry += variant(ln)
         elif entry is not None and ("spill" in ln or "registers" in ln):
             line("ptxas", kernel=entry, report=repr(ln.strip()))
 
@@ -1802,9 +2080,14 @@ def run_tools(torch, kernels):
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
-    twins' gradients and losses, without the timed steps), "chains" phase
-    12. Returns the number of repeats that failed their gate."""
+    twins' gradients and losses, without the timed steps), "segment_sums"
+    the gates and times of kernels 5 and 7 from phases 5 and 8, "chains"
+    phase 12. Returns the number of repeats that failed their gate."""
     failed = 0
+    if phase == "segment_sums":
+        geo_calls = geo_step_segment_calls(torch, kernels, serve, kitti_config,
+                                           dev)
+        warp_calls = warp_segment_calls(torch, kernels, serve, kitti_config)
     for i in range(repeat):
         try:
             if phase == "geo_train":
@@ -1812,6 +2095,13 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 batch = serve.synthetic_batch(cfg, B, dev, seed=0,
                                               keys=serve.TRAIN_KEYS)
                 compare_geo_twins(torch, kernels, cfg, batch, dev)
+            elif phase == "segment_sums":
+                _, randn, randint = rand_factory(torch, 4321, dev)
+                check_segment_sum(torch, kernels, dev, randn, randint,
+                                  geo_calls)
+                _, randn, randint = rand_factory(torch, 777, dev)
+                check_segment_sum_shared(torch, kernels, dev, randn, randint,
+                                         lambda: warp_calls)
             else:
                 check_chain_kernels(torch, kernels, dev)
             line("phase_gate", phase=phase, repeat=i, passed=True)
@@ -1824,12 +2114,14 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 
 
 def main(argv=None) -> int:
-    """Every phase, with no arguments. ``--phase geo_train|chains
-    [--repeat N]`` builds the kernels and runs that one phase N times
-    instead (exit code 1 if any repeat failed its gate)."""
+    """Every phase, with no arguments. ``--phase
+    geo_train|segment_sums|chains [--repeat N]`` builds the kernels and
+    runs that one phase N times instead (exit code 1 if any repeat failed
+    its gate)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phase", choices=("all", "geo_train", "chains"),
+    ap.add_argument("--phase",
+                    choices=("all", "geo_train", "segment_sums", "chains"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     opts = ap.parse_args(argv)
@@ -1856,6 +2148,11 @@ def main(argv=None) -> int:
     kernels.library()
     line("build", seconds=f"{time.perf_counter() - t0:.2f}",
          library=build.library_path())
+    if opts.phase in ("all", "segment_sums"):
+        print_ptxas(build, "segment_sum", SEGMENT_SUM_KERNEL_NAMES,
+                    int_template)
+        print_ptxas(build, "segment_sum_shared",
+                    SEGMENT_SUM_SHARED_KERNEL_NAMES, int_template)
     if opts.phase != "all":
         failed = run_phase(torch, kernels, serve, kitti_config, dev,
                            opts.phase, opts.repeat)
@@ -1866,7 +2163,8 @@ def main(argv=None) -> int:
     counts, _ = run_path(torch, kernels, serve, kitti_config, "float32")
     run_path(torch, kernels, serve, kitti_config, "bfloat16")
 
-    train_rows, _ = check_train_kernels(torch, kernels, dev)
+    train_rows, _ = check_train_kernels(torch, kernels, serve, kitti_config,
+                                        dev)
     rows.update(train_rows)
     geo_counts, geo_state, train_batch = run_geo_train(
         torch, kernels, serve, kitti_config(), dev)
@@ -1875,7 +2173,8 @@ def main(argv=None) -> int:
     del geo_state, train_batch
     torch.cuda.empty_cache()
 
-    rows.update(check_compose_kernels(torch, kernels, dev))
+    rows.update(check_compose_kernels(torch, kernels, serve, kitti_config,
+                                      dev))
     run_itermodel(torch, kernels, serve, kitti_config)
     torch.cuda.empty_cache()
     composed_counts = run_composed(torch, kernels, serve, kitti_config,

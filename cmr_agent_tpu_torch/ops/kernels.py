@@ -46,6 +46,7 @@ wrappers up at call time, so swapping a wrapper for its plain version
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -61,7 +62,8 @@ _SIGNATURES = {
     "cmr_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_raster_project": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
-    "cmr_segment_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_segment_sum_scratch_bytes": [_I, _I, _I, _I],
     "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _P],
     "cmr_raster_image": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -75,6 +77,8 @@ _SIGNATURES = {
     "cmr_raster_factored": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_error_string": [_I],
 }
+_RESTYPES = {"cmr_error_string": ctypes.c_char_p,
+             "cmr_segment_sum_scratch_bytes": ctypes.c_longlong}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -86,8 +90,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_char_p if name == "cmr_error_string" \
-                else ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 
@@ -426,10 +429,33 @@ def segment_sum_plain(data: torch.Tensor, idx: torch.Tensor,
     return out[:, :m]
 
 
+@functools.lru_cache(maxsize=64)
+def _segment_sum_scratch_bytes(b: int, n: int, m: int, f: int) -> int:
+    return library().cmr_segment_sum_scratch_bytes(b, n, m, f)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(nbytes: int, device: torch.device, stream: int
+             ) -> torch.Tensor:
+    """A byte buffer of at least ``nbytes`` on ``device``, kept for the
+    CUDA ``stream`` between calls: a kernel that takes it reads and writes
+    it only while it runs, and the stream runs its calls in order."""
+    key = (device, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
 def segment_sum(data: torch.Tensor, idx: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Kernel wrapper of :func:`segment_sum_plain`: f32 ``data``, int32
-    ``idx``."""
+    ``idx``, ``num_segments`` at most 65535. The kernel buckets the rows by
+    segment, then writes every output row once, its rows added in ascending
+    order in fixed pieces: the same bits on every run."""
     if not _on_cuda(data, idx):
         return segment_sum_plain(data, idx, num_segments)
     b, n, f = data.shape
@@ -438,9 +464,12 @@ def segment_sum(data: torch.Tensor, idx: torch.Tensor,
     _require("idx", idx, (torch.int32,), (b, n))
     if m < 1:
         raise ValueError(f"num_segments must be positive, got {m}")
-    out = torch.zeros((b, m, f), device=data.device)
-    _launch("cmr_segment_sum", _ptr(data), _ptr(idx), _ptr(out), b, n, m, f,
-            _stream())
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    nbytes = _segment_sum_scratch_bytes(b, n, m, f)
+    scratch = _scratch(nbytes, data.device, stream) if nbytes else None
+    out = torch.empty((b, m, f), device=data.device)
+    _launch("cmr_segment_sum", _ptr(data), _ptr(idx), _ptr(scratch),
+            _ptr(out), b, n, m, f, ctypes.c_void_p(stream))
     segment_sum.launches += 1
     return out
 
@@ -619,7 +648,10 @@ def segment_sum_shared_plain(data: torch.Tensor, idx: torch.Tensor,
 def segment_sum_shared(data: torch.Tensor, idx: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Kernel wrapper of :func:`segment_sum_shared_plain`: f32 ``data``,
-    int32 ``idx``. The output is zeroed here, then filled by atomics."""
+    int32 ``idx``, at most 65536 rows and 65535 segments. A block per
+    hypothesis buckets its rows by segment and writes its ``[M, F]`` slab
+    once, each segment's rows added in ascending order: the same bits on
+    every run."""
     if not _on_cuda(data, idx):
         return segment_sum_shared_plain(data, idx, num_segments)
     b, n, f = data.shape
@@ -628,7 +660,7 @@ def segment_sum_shared(data: torch.Tensor, idx: torch.Tensor,
     _require("idx", idx, (torch.int32,), (b, p, n))
     if m < 1:
         raise ValueError(f"num_segments must be positive, got {m}")
-    out = torch.zeros((b, p, m, f), device=data.device)
+    out = torch.empty((b, p, m, f), device=data.device)
     _launch("cmr_segment_sum_shared", _ptr(data), _ptr(idx), _ptr(out), b, p,
             n, m, f, _stream())
     segment_sum_shared.launches += 1

@@ -211,6 +211,8 @@ TOOL_ARGS = {
     "episode_trace": ["--config", "micro", "--batch", "2", "--iters", "1",
                       "--dtype", "float32",
                       "--top", "5"],
+    "segment_turns": ["--config", "micro", "--batch", "2", "--iters", "1",
+                      "--hypotheses", "3"],
 }
 
 
@@ -257,6 +259,24 @@ def test_episode_trace_runs_on_cpu():
     for row in out["top"]:
         assert set(row) == {"op", "total_ms", "per_iter_ms", "count", "pct"}
     assert sum(r["pct"] for r in out["top"]) <= 100.0 + 1e-6
+
+
+def test_segment_turns_runs_on_cpu(capsys):
+    """The segment sums' turns tool at micro size: every part runs, the
+    request's kernel-7 calls are captured, and the wrappers (their plain
+    versions here) give the same bits twice."""
+    out = _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
+                                      + ["--device", "cpu"])
+    assert [r["kernel"] for r in out["uniform"]] == ["segment_sum"] * 3 + [
+        "segment_sum_shared"]
+    assert all(r["ms"] > 0.0 and r["device_ms"] is None
+               for r in out["uniform"])
+    assert out["request"]["calls"] > 0 and out["request"]["same_bits"]
+    assert out["request"]["kernel_in_request_device_ms"] is None
+    assert out["geo"]["same_bits"] and out["device"] == "cpu"
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == out
+    assert all(json.loads(ln)["same_bits"] for ln in printed[:-1])
 
 
 @pytest.mark.parametrize("name", sorted(TOOL_ARGS))
