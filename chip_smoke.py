@@ -5,6 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase geo_train --repeat 3   # one phase alone
     python3 chip_smoke.py --phase segment_sums           # kernels 5 and 7
+    python3 chip_smoke.py --phase knn_raster             # kernels 3 and 4
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -12,7 +13,8 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
 2. build the CUDA kernels from ``cmr_agent_tpu_torch/csrc`` (into
    ``build/cuda/``) and report the build time;
 3. each kernel at the serving path's KITTI shapes against its plain
-   PyTorch version on the card, with its time, the plain version's time,
+   PyTorch version on the card (the knn equal in full order, the raster's
+   int8 means bit-equal), with its time, the plain version's time,
    the least time the card could take (from the bytes or operations the
    function needs) and, where one PyTorch call computes the same function,
    that call's time;
@@ -90,7 +92,18 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     launches are counted over these three runs), ``tools.episode_trace``
     (bf16, 3 episodes) and ``tools.train_probe`` (10 steps per variant),
     each JSON on a ``[raster_probe]``, ``[episode_trace]`` or
-    ``[train_probe]`` line.
+    ``[train_probe]`` line;
+16. the exact knn and the projection-fused raster (kernels 3 and 4, also
+    alone with ``--phase knn_raster``): the knn equal to its plain version
+    in full order and bit-equal across launches at the serving shape, k 1,
+    8, 16, 32 at N = 1000 and 4096 with M != N, on exact duplicates and
+    on the geo forward's own call; the raster in f32, bf16 and int8 (counts
+    exact, int8 means bit-equal, f32 / bf16 rtol 1e-5 atol 1e-6) on phase
+    3's cloud, counts 0 and K, every row on one pixel, every row behind the
+    camera, every pixel filled, a 37x101 frame and an all-zero channel,
+    then on the 10 calls of one bf16 + int8 episode; with each kernel's
+    wrapper, device and host times and its bound in each mode; then both
+    wrappers raising, with no launch, on shapes the kernels cannot take.
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -107,7 +120,8 @@ import subprocess
 import sys
 import time
 
-from cmr_agent_tpu_torch.tools.segment_turns import capture
+from cmr_agent_tpu_torch.tools.segment_turns import (capture, capture_calls,
+                                                     raster_cloud)
 from cmr_agent_tpu_torch.utils.profiling import cuda_ms, profile_device
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor-core)
@@ -190,86 +204,125 @@ def check_kernels(torch, kernels, dev):
         tol="exact", shape=f"[{B},{N_NODE},{F}]x[{B},{N_PT}] f32",
         bound=bound(nbytes, 0.0))
 
-    # 3. knn over the nodes
+    # 3. knn over the nodes: equal to the plain version in full order
     xyz = randn(B, N_NODE, 3, scale=20.0)
-    got = kernels.knn(xyz, xyz, KNN_K)
-    want = kernels.knn_plain(xyz, xyz, KNN_K)
-    assert torch.equal(got.sort(-1).values, want.sort(-1).values)
-    sqn = (xyz * xyz).sum(-1)
-
-    def dist(ix):
-        nb = torch.gather(xyz[:, None].expand(-1, N_NODE, -1, -1), 2,
-                          ix.long()[..., None].expand(-1, -1, -1, 3))
-        return torch.gather(sqn[:, None].expand(-1, N_NODE, -1), 2,
-                            ix.long()) - 2 * (nb * xyz[:, :, None]).sum(-1)
-    err = (dist(got).sort(-1).values - dist(want).sort(-1).values
-           ).abs().max().item()
-    assert err <= 1e-3, err
-    ms = cuda_ms(lambda: kernels.knn(xyz, xyz, KNN_K), 20)
-    plain_ms = cuda_ms(lambda: kernels.knn_plain(xyz, xyz, KNN_K), 5)
-    nbytes = 2 * B * N_NODE * 3 * 4 + B * N_NODE * KNN_K * 4
-    rows["knn"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        tol="same neighbour sets; sorted distances within 1e-3",
-        shape=f"[{B},{N_NODE},3] k={KNN_K}",
-        bound=bound(nbytes, 7.0 * B * N_NODE * N_NODE))
+    rows["knn"] = knn_row(torch, kernels, xyz, xyz, KNN_K)
 
     # 4. projection-fused raster: valid-first clouds, some behind the camera
-    fx = 1.2 * IMG_W
-    z = torch.rand(B, RASTER_K, generator=gen) * 38 + 2
-    u = torch.rand(B, RASTER_K, generator=gen) * (IMG_W + 20) - 10
-    v = torch.rand(B, RASTER_K, generator=gen) * (IMG_H + 10) - 5
-    pc = torch.stack([(u - IMG_W / 2) * z / fx, (v - IMG_H / 2) * z / fx, z],
-                     1)
-    pc[:, 2, :RASTER_K // 40] *= -1.0
-    pcT = pc.contiguous().to(dev)
-    feat = randn(B, RASTER_K, F)
-    counts = torch.randint(RASTER_K // 4, RASTER_K + 1, (B,), generator=gen,
-                           dtype=torch.int32).to(dev)
-    Kc = torch.tensor([[fx, 0, IMG_W / 2], [0, fx, IMG_H / 2], [0, 0, 1]])
-    yaw = torch.rand(B, generator=gen) * 0.2 - 0.1
-    R = torch.zeros(B, 3, 3)
-    R[:, 0, 0], R[:, 0, 2] = torch.cos(yaw), torch.sin(yaw)
-    R[:, 2, 0], R[:, 2, 2] = -torch.sin(yaw), torch.cos(yaw)
-    R[:, 1, 1] = 1.0
-    t = torch.randn(B, 3, generator=gen) * 0.3
-    ab = torch.cat([(Kc @ R).reshape(B, 9), t @ Kc.T], 1).contiguous().to(dev)
-    modes = {}
-    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
-                     ("int8", torch.int8)):
-        gm, gc = kernels.segment_mean_count_image_project(
-            pcT, feat, ab, counts, IMG_H, IMG_W, dt)
-        wm, wc = kernels.segment_mean_count_image_project_plain(
-            pcT, feat, ab, counts, IMG_H, IMG_W, dt)
-        assert torch.equal(gc, wc), mode
-        assert wc.sum() > 0.3 * counts.sum().item(), mode
-        if mode == "f32":
-            landed = int(wc.sum().item())
-        torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
-        modes[mode] = dict(
-            err=(gm - wm).abs().max().item(),
-            ms=cuda_ms(lambda: kernels.segment_mean_count_image_project(
-                pcT, feat, ab, counts, IMG_H, IMG_W, dt), 20),
-            plain_ms=cuda_ms(lambda: kernels.segment_mean_count_image_project_plain(
-                pcT, feat, ab, counts, IMG_H, IMG_W, dt), 5))
-        line("raster_mode", mode=mode, max_abs_err=modes[mode]["err"],
-             kernel_ms=f"{modes[mode]['ms']:.5f}",
-             plain_ms=f"{modes[mode]['plain_ms']:.5f}")
-    # every valid row's xyz is read and projected; only the rows that land
-    # in the frame need their F features read and added
-    valid = int(counts.sum().item())
-    out_bytes = B * IMG_H * IMG_W * (F + 1) * 4
-    nbytes = valid * 3 * 4 + landed * F * 4 + B * (12 + 1) * 4 + out_bytes
+    cloud = raster_cloud(B, RASTER_K, F, IMG_H, IMG_W, dev, gen)
+    modes = raster_modes(torch, kernels, *cloud, IMG_H, IMG_W, "phase3")
+    r = modes["f32"]
+    assert r["landed"] > 0.3 * int(cloud[3].sum()), r["landed"]
     rows["segment_mean_count_image_project"] = dict(
-        max_abs_err=modes["f32"]["err"], ms=modes["f32"]["ms"],
-        plain_ms=modes["f32"]["plain_ms"], library_ms=None,
-        tol="counts exact; means rtol 1e-5 atol 1e-6 (f32, bf16, int8)",
+        r, tol="counts exact; int8 means bit-equal; f32, bf16 means rtol "
+               "1e-5 atol 1e-6 (shared-memory atomics reorder f32 sums)",
         shape=f"[{B},3,{RASTER_K}] F={F} {IMG_H}x{IMG_W} f32, "
-              f"{valid} valid rows, {landed} in the frame",
-        bound=bound(nbytes, 20.0 * valid + (F + 1.0) * landed))
+              f"{int(cloud[3].sum())} valid rows, {r['landed']} in the frame")
 
     print_rows(rows)
     return rows
+
+
+KNN_KERNEL_NAMES = ("knn_kernel",)
+RASTER_KERNEL_NAMES = ("raster_prepass_kernel", "raster_band_kernel")
+# kernel 4's operand modes: (name, compute dtype)
+RASTER_MODES = (("f32", None), ("bf16", "bfloat16"), ("int8", "int8"))
+
+
+def knn_row(torch, kernels, xyz, query, k: int, timed: bool = True):
+    """Kernel 3 against its plain version on one call: ``torch.equal``,
+    neighbours in full order, and the same bits on a second launch; with
+    ``timed`` the wrapper's, device and plain times and the bound (the
+    inputs read and the output written once; 7 f32 operations a
+    distance), else the wrapper's time over 3 calls."""
+    got = kernels.knn(xyz, query, k)
+    assert torch.equal(got, kernels.knn_plain(xyz, query, k)), (
+        xyz.shape, query.shape, k)
+    assert torch.equal(kernels.knn(xyz, query, k), got)
+    b, n, _ = xyz.shape
+    m = query.shape[1]
+    row = dict(max_abs_err=0.0, library_ms=None,
+               tol="equal to the plain version in full order; same bits "
+                   "on a second launch",
+               shape=f"[{b},{n},3]x[{b},{m},3] k={k}")
+
+    def fn():
+        return kernels.knn(xyz, query, k)
+    if not timed:
+        return dict(row, ms=cuda_ms(fn, 3))
+    nbytes = b * (n + m) * 3 * 4 + b * m * k * 4
+    return dict(row, ms=cuda_ms(fn, 20),
+                device_ms=kernel_device_ms(fn, KNN_KERNEL_NAMES),
+                host_us=host_us(torch, fn),
+                plain_ms=cuda_ms(lambda: kernels.knn_plain(xyz, query, k), 5),
+                bound=bound(nbytes, 7.0 * b * m * n))
+
+
+def raster_bound(pcT, feat, counts, landed: int, h: int, w: int,
+                 mode: str):
+    """Kernel 4's bound: the valid rows' xyz, the landing rows' features
+    (int8: all K rows', which the absmax reads) in their given dtype, ab,
+    counts and the output, each once; 20 operations a valid row's
+    projection and F + 1 adds a landing row."""
+    b, _, k = pcT.shape
+    f = feat.shape[-1]
+    valid = int(counts.clamp(0, k).sum())
+    feat_rows = b * k if mode == "int8" else landed
+    nbytes = (valid * 3 * 4 + feat_rows * f * feat.element_size()
+              + b * 13 * 4 + b * h * w * (f + 1) * 4)
+    return bound(nbytes, 20.0 * valid + (f + 1.0) * landed)
+
+
+def raster_modes(torch, kernels, pcT, feat, ab, counts, h: int, w: int,
+                 label: str, timed: bool = True):
+    """Kernel 4 against its plain version in f32, bf16 and int8 on one
+    input: counts exact, int8 means bit-equal (exact integer sums, the same
+    scale), f32 / bf16 means within rtol 1e-5 atol 1e-6 (the shared-memory
+    atomics add in another order), int8 the same bits on a second launch.
+    With ``timed`` each mode's wrapper, device, host and plain times and
+    bound. Returns ``{mode: row}``; one ``[raster_mode]`` line a mode."""
+    out = {}
+    for mode, dt in RASTER_MODES:
+        args = (pcT, feat, ab, counts, h, w,
+                None if dt is None else getattr(torch, dt))
+        gm, gc = kernels.segment_mean_count_image_project(*args)
+        wm, wc = kernels.segment_mean_count_image_project_plain(*args)
+        assert torch.equal(gc, wc), (label, mode)
+        err = (gm - wm).abs().max().item() if gm.numel() else 0.0
+        if mode == "int8":
+            assert torch.equal(gm, wm), (label, mode, err)
+        else:
+            torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
+        gm2, gc2 = kernels.segment_mean_count_image_project(*args)
+        same = bool(torch.equal(gm2, gm) and torch.equal(gc2, gc))
+        assert same or mode != "int8", (label, mode)
+        r = dict(max_abs_err=err, same_bits=same, landed=int(wc.sum()),
+                 library_ms=None)
+        del gm, gc, wm, wc, gm2, gc2
+
+        def fn():
+            return kernels.segment_mean_count_image_project(*args)
+        if timed:
+            r.update(ms=cuda_ms(fn, 20),
+                     device_ms=kernel_device_ms(fn, RASTER_KERNEL_NAMES),
+                     host_us=host_us(torch, fn),
+                     plain_ms=cuda_ms(lambda: kernels.
+                                      segment_mean_count_image_project_plain(
+                                          *args), 5),
+                     bound=raster_bound(pcT, feat, counts, r["landed"], h, w,
+                                        mode))
+        else:
+            r["ms"] = cuda_ms(fn, 3)
+        line("raster_mode", case=label, mode=mode, feat_dtype=str(
+            feat.dtype).replace("torch.", ""), landed=r["landed"],
+             max_abs_err=err, same_bits=same, kernel_ms=f"{r['ms']:.5f}",
+             **({} if not timed else dict(
+                 device_ms=fmt_ms(r["device_ms"]),
+                 host_us=f"{r['host_us']:.1f}",
+                 plain_ms=f"{r['plain_ms']:.5f}",
+                 bound_us=f"{r['bound'][0] * 1e3:.2f}({r['bound'][1]})")))
+        out[mode] = r
+    return out
 
 
 def print_rows(rows) -> None:
@@ -394,7 +447,8 @@ FUSION_KERNELS = ("fused_dense_chain", "fused_dense_chain_cn",
                   "segment_sum_count_image_compact")
 PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
                      "normalise_kernel", "gather_rows_kernel", "knn_kernel",
-                     "raster_project_kernel", "raster_finalise_kernel",
+                     "raster_prepass_kernel", "raster_band_kernel",
+                     "raster_finalise_kernel",
                      "segment_bucket_kernel", "segment_reduce_kernel",
                      "softmax_backward_kernel",
                      "raster_image_kernel", "segment_sum_shared_kernel",
@@ -2077,12 +2131,200 @@ def run_tools(torch, kernels):
     return launches
 
 
+def raster_variant(entry_line: str) -> str:
+    """``<type,mode-or-flag,V>`` of a kernel 4 template instance."""
+    kind = "bf16" if "__nv_bfloat16" in entry_line else "f32"
+    return "<" + ",".join([kind] + re.findall(r"L[ib](\d+)E", entry_line)) + ">"
+
+
+def knn_cases(torch, gen, dev, geo_calls):
+    """Kernel 3's cases: ``(kind, xyz, query, k)``: the serving shape; k 1,
+    8, 16 and 32 at N = 1000 and 4096 with 777 queries drawn apart; a cloud
+    of exact duplicates (1000 points on 343 grid sites, every distance
+    exact, ties to the lower index); the geo forward's own calls."""
+    def cloud(b, n, scale):
+        return (torch.randn(b, n, 3, generator=gen) * scale).to(dev)
+    serving = cloud(B, N_NODE, 20.0)
+    cases = [("serving", serving, serving, KNN_K)]
+    for n in (1000, 4096):
+        xyz, query = cloud(2, n, 5.0), cloud(2, 777, 5.0)
+        cases += [(f"n{n}_m777_k{k}", xyz, query, k) for k in (1, 8, 16, 32)]
+    dup = (torch.randint(-3, 4, (2, 1000, 3), generator=gen).float() / 2
+           ).to(dev)
+    cases.append(("duplicates", dup, dup, 32))
+    cases += [(f"geo_forward_{i}", *args[:3])
+              for i, (args, _) in enumerate(geo_calls)]
+    return cases
+
+
+def raster_cases(torch, gen, dev):
+    """Kernel 4's edge cases: ``(kind, pcT, feat, ab, counts, h, w)``."""
+    base = raster_cloud(B, RASTER_K, F, IMG_H, IMG_W, dev, gen)
+    pcT, feat, ab, counts = base
+    ends = counts.clone()
+    ends[0], ends[1] = 0, RASTER_K
+    # an identity camera: the pixel of (x, y, z) is (x / z, y / z)
+    eye = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0]).repeat(B, 1
+                                                                      ).to(dev)
+    full = torch.full((B,), RASTER_K, dtype=torch.int32, device=dev)
+    one = torch.ones(B, 3, RASTER_K, device=dev)
+    one[:, 0], one[:, 1] = IMG_W // 2, IMG_H // 2
+    grid = grid_rows(torch, gen, B, RASTER_K, F).to(dev)
+    behind = pcT.clone()
+    behind[:, 2] = -behind[:, 2].abs()
+    # four rows on every pixel (jittered by up to 0.3): each band boundary,
+    # which falls inside an image row, sees rows on both of its sides
+    px = torch.arange(IMG_H * IMG_W).repeat(4)
+    jit = (torch.rand(2, B, RASTER_K, generator=gen) - 0.5) * 0.6
+    every = torch.stack([
+        ((px % IMG_W).float() + jit[0]).clamp(0, IMG_W - 1),
+        ((px // IMG_W).float() + jit[1]).clamp(0, IMG_H - 1),
+        torch.ones(B, RASTER_K)], 1).contiguous().to(dev)
+    zero = feat.clone()
+    zero[..., 3] = 0.0
+    odd_h, odd_w = 37, 101
+    return [("phase3", *base, IMG_H, IMG_W),
+            ("counts_0_and_K", pcT, feat, ab, ends, IMG_H, IMG_W),
+            ("one_pixel", one, grid, eye, full, IMG_H, IMG_W),
+            ("behind_camera", behind, feat, ab, full, IMG_H, IMG_W),
+            ("every_pixel", every, feat, eye, full, IMG_H, IMG_W),
+            ("odd_frame_37x101", pcT, feat, ab, counts, odd_h, odd_w),
+            ("zero_channel", pcT, zero, ab, counts, IMG_H, IMG_W)]
+
+
+def episode_path_calls(torch, serve, kitti_config):
+    """Kernels 3 and 4's calls in one bf16 + int8 serving episode (KITTI
+    width, B=8, seed 0, the fresh overlap head centred on the median point
+    so that about half the top-K rows are valid), captured: ``(knn calls:
+    the geo forward's node cloud against itself, raster calls: one a
+    step)``."""
+    cfg = kitti_config(compute_dtype="bfloat16")
+    batch, model, agent, _ = serve.build_workload(cfg, B, seed=0)
+    serve.centre_overlap_head_(model, batch)
+    raster = []
+    knn = capture_calls("knn", lambda: raster.extend(capture_calls(
+        "segment_mean_count_image_project",
+        lambda: serve.serve_episode(model, agent, cfg, batch))))
+    del batch, model, agent
+    torch.cuda.empty_cache()
+    return knn, raster
+
+
+def check_refusals(torch, kernels, dev) -> None:
+    """Kernels 3 and 4 raise on shapes they cannot take, count no launch
+    and fall back to nothing: knn past N = 4096 or k = 32, the raster with
+    an unsupported compute dtype or F past a block's shared memory
+    (``[refusal]``)."""
+    before = kernels.launch_counts()
+    xyz = torch.zeros(1, kernels.KNN_MAX_POINTS + 1, 3, device=dev)
+    pcT = torch.ones(1, 3, 64, device=dev)
+    eye = torch.tensor([[1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0]], device=dev)
+    counts = torch.full((1,), 64, dtype=torch.int32, device=dev)
+    wide = torch.zeros(1, 64, 60000, device=dev)
+    cases = {
+        "knn_n_4097": (ValueError, lambda: kernels.knn(xyz, xyz[:, :8], 4)),
+        "knn_k_33": (ValueError, lambda: kernels.knn(xyz[:, :64],
+                                                     xyz[:, :8], 33)),
+        "raster_f16": (ValueError, lambda: kernels.
+                       segment_mean_count_image_project(
+                           pcT, wide[..., :8].contiguous(), eye, counts, 4,
+                           4, torch.float16)),
+    }
+    for mode, dt in RASTER_MODES:
+        cases[f"raster_f60000_{mode}"] = (
+            RuntimeError, lambda dt=dt: kernels.segment_mean_count_image_project(
+                pcT, wide, eye, counts, 4, 4,
+                None if dt is None else getattr(torch, dt)))
+    for name, (kind, fn) in cases.items():
+        try:
+            fn()
+        except kind as e:
+            line("refusal", case=name, raised=type(e).__name__,
+                 message=repr(str(e)[:90]))
+        else:
+            raise AssertionError(f"{name}: no {kind.__name__}")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+
+
+def check_knn_raster(torch, kernels, serve, kitti_config, dev):
+    """Phase 16 (``--phase knn_raster``): kernels 3 and 4 on their edge
+    cases and on their paths' own calls (:func:`episode_path_calls`). knn
+    (``[knn_case]``): equal to its plain version in full order and
+    bit-equal across launches on every case of :func:`knn_cases`, timed at
+    the serving shape and on the geo forward's call. Kernel 4 (``[raster_mode]``): :func:`raster_modes` on
+    every case of :func:`raster_cases`, timed on phase 3's cloud; then the
+    10 calls of one bf16 + int8 episode (``[raster_path]``: each held in
+    all three modes, its own int8 call timed; ``[raster_path_total]``: the
+    10 calls' wrapper, device and plain times); then
+    :func:`check_refusals`."""
+    from cmr_agent_tpu_torch.ops import build
+    print_ptxas(build, "knn", KNN_KERNEL_NAMES, int_template)
+    print_ptxas(build, "raster", RASTER_KERNEL_NAMES, raster_variant)
+    t0 = time.perf_counter()
+    geo_calls, ep_calls = episode_path_calls(torch, serve, kitti_config)
+    line("knn_raster_capture", seconds=f"{time.perf_counter() - t0:.1f}",
+         geo_forward_knn_calls=len(geo_calls),
+         episode_raster_calls=len(ep_calls))
+    gen = torch.Generator().manual_seed(808)
+    rows = {}
+    for kind, xyz, query, k in knn_cases(torch, gen, dev, geo_calls):
+        timed = kind == "serving" or kind.startswith("geo_forward")
+        r = knn_row(torch, kernels, xyz, query, k, timed)
+        line("knn_case", kind=kind, shape=repr(r["shape"]), equal_plain=True,
+             same_bits=True, kernel_ms=f"{r['ms']:.5f}",
+             **({} if not timed else dict(device_ms=fmt_ms(r["device_ms"]),
+                                          host_us=f"{r['host_us']:.1f}")))
+        if timed:
+            rows[f"knn[{kind}]"] = r
+    print_rows(rows)
+    del geo_calls
+    for kind, *args in raster_cases(torch, gen, dev):
+        modes = raster_modes(torch, kernels, *args, kind,
+                             timed=kind == "phase3")
+        landed = {r["landed"] for r in modes.values()}
+        if kind in ("one_pixel", "every_pixel"):
+            assert landed == {B * RASTER_K}, (kind, landed)
+        elif kind == "behind_camera":
+            assert landed == {0}, (kind, landed)
+    hold_raster_path(torch, kernels, ep_calls)
+    check_refusals(torch, kernels, dev)
+
+
+def hold_raster_path(torch, kernels, calls) -> None:
+    """Kernel 4 on the calls of one bf16 + int8 episode: each call's
+    inputs held in all three modes (:func:`raster_modes`, untimed) and its
+    own call timed (``[raster_path]``); then all calls in turn
+    (``[raster_path_total]``: wrapper, device, plain)."""
+    fn, plain = (kernels.segment_mean_count_image_project,
+                 kernels.PLAIN["segment_mean_count_image_project"])
+    for i, (args, kw) in enumerate(calls):
+        pcT, feat, ab, counts, h, w = args
+        modes = raster_modes(torch, kernels, pcT, feat, ab, counts, h, w,
+                             f"episode_{i}", timed=False)
+        line("raster_path", call=i, feat_dtype=str(feat.dtype).replace(
+            "torch.", ""), compute_dtype=str(kw.get("compute_dtype")),
+             valid_rows=int(counts.sum()),
+             landed=modes["int8"]["landed"], int8_equal=True,
+             kernel_ms=f"{cuda_ms(lambda: fn(*args, **kw), 5):.5f}")
+
+    def each(f):
+        return lambda: [f(*args, **kw) for args, kw in calls]
+    line("raster_path_total", calls=len(calls),
+         kernel_ms=f"{cuda_ms(each(fn), 5):.5f}",
+         device_ms=fmt_ms(kernel_device_ms(each(fn), RASTER_KERNEL_NAMES,
+                                           iters=3)),
+         host_us=f"{host_us(torch, each(fn), iters=10):.1f}",
+         plain_ms=f"{cuda_ms(each(plain), 2):.5f}")
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
     twins' gradients and losses, without the timed steps), "segment_sums"
     the gates and times of kernels 5 and 7 from phases 5 and 8, "chains"
-    phase 12. Returns the number of repeats that failed their gate."""
+    phase 12, "knn_raster" phase 16 (kernels 3 and 4). Returns the number
+    of repeats that failed their gate."""
     failed = 0
     if phase == "segment_sums":
         geo_calls = geo_step_segment_calls(torch, kernels, serve, kitti_config,
@@ -2095,6 +2337,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 batch = serve.synthetic_batch(cfg, B, dev, seed=0,
                                               keys=serve.TRAIN_KEYS)
                 compare_geo_twins(torch, kernels, cfg, batch, dev)
+            elif phase == "knn_raster":
+                check_knn_raster(torch, kernels, serve, kitti_config, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -2115,13 +2359,14 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
-    geo_train|segment_sums|chains [--repeat N]`` builds the kernels and
-    runs that one phase N times instead (exit code 1 if any repeat failed
-    its gate)."""
+    geo_train|segment_sums|chains|knn_raster [--repeat N]`` builds the
+    kernels and runs that one phase N times instead (exit code 1 if any
+    repeat failed its gate)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
-                    choices=("all", "geo_train", "segment_sums", "chains"),
+                    choices=("all", "geo_train", "segment_sums", "chains",
+                             "knn_raster"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     opts = ap.parse_args(argv)
@@ -2203,6 +2448,11 @@ def main(argv=None) -> int:
                                                                dev)
     factored_launches = run_tools(torch, kernels)
     line("fifth_slice_phases", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    check_knn_raster(torch, kernels, serve, kitti_config, dev)
+    line("eighth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode,
     # one geo train step, the agent training run, one composed request, the
     # "pack" episode, the fused ("all", f32) episode, the "compact" (f32)

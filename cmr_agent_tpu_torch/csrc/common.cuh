@@ -31,11 +31,10 @@ static inline unsigned int cmr_blocks(long long total, int threads) {
 }
 
 // ---------------------------------------------------------------------------
-// Pixel raster, shared by the projection-fused raster (raster.cu), the
-// pixel-id raster (raster_image.cu) and the compacting raster
-// (raster_compact.cu); they differ only in where a row's pixel comes from
-// and which rows a block visits. The accumulator is [B, h*w, F+1]: F feature sums, then
-// the count.
+// Pixel raster, shared by the pixel-id raster (raster_image.cu) and the
+// compacting raster (raster_compact.cu); they differ only in where a row's
+// pixel comes from and which rows a block visits. The accumulator is
+// [B, h*w, F+1]: F feature sums, then the count.
 // ---------------------------------------------------------------------------
 
 namespace {

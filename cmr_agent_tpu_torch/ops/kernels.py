@@ -60,7 +60,7 @@ _SIGNATURES = {
     "cmr_segment_softmax_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "cmr_raster_project": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+    "cmr_raster_project": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
     "cmr_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_segment_sum_scratch_bytes": [_I, _I, _I, _I],
@@ -302,7 +302,11 @@ def quantize_int8(feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     matches it on purpose so both quantise identically.
     """
     f32 = feat.float()
-    scale = f32.abs().amax(dim=1).clamp_min(1e-12) / 127.0
+    absmax = f32.abs().amax(dim=1).clamp_min(1e-12)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its f32 reciprocal, which can differ from the IEEE quotient in the
+    # last bit; the kernel and the CPU divide
+    scale = absmax / torch.full_like(absmax, 127.0)
     q = torch.round(f32 / scale[:, None, :]).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -381,11 +385,20 @@ def _raster_mean_count(q: torch.Tensor, scale: Optional[torch.Tensor],
     return sums / cnt.clamp_min(1.0)[..., None], cnt
 
 
+# operand mode of the raster kernel by compute dtype
+_RASTER_MODES = {None: 0, torch.float32: 0, torch.bfloat16: 1,
+                 torch.int8: 2}
+
+
 def segment_mean_count_image_project(
         pcT: torch.Tensor, feat: torch.Tensor, ab: torch.Tensor,
         counts: torch.Tensor, h: int, w: int,
         compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of :func:`segment_mean_count_image_project_plain`."""
+    """Kernel wrapper of :func:`segment_mean_count_image_project_plain`:
+    ``feat`` f32 or bf16, read as it comes; the bf16 rounding and the int8
+    quantisation (``scale`` by a reduction kernel over all K rows, as
+    :func:`quantize_int8`) happen on the card. Each output element is
+    written once."""
     if not _on_cuda(pcT, feat, ab, counts):
         return segment_mean_count_image_project_plain(
             pcT, feat, ab, counts, h, w, compute_dtype)
@@ -395,17 +408,24 @@ def segment_mean_count_image_project(
     _require("feat", feat, (torch.float32, torch.bfloat16), (b, k, f))
     _require("ab", ab, (torch.float32,), (b, 12))
     _require("counts", counts, (torch.int32,), (b,))
-    q, scale = _operands(feat, compute_dtype)
-    q = q.contiguous()
-    kind = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[q.dtype]
-    acc = torch.zeros((b, h * w, f + 1),
-                      dtype=torch.int32 if kind == 2 else torch.float32,
-                      device=pcT.device)
-    means = torch.empty((b, h * w, f), device=pcT.device)
-    cnt = torch.empty((b, h * w), device=pcT.device)
-    _launch("cmr_raster_project", _ptr(pcT), _ptr(q), kind, _ptr(ab),
-            _ptr(counts), _ptr(scale), _ptr(acc), _ptr(means), _ptr(cnt),
-            b, k, f, h, w, _stream())
+    if compute_dtype not in _RASTER_MODES:
+        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
+    mode = _RASTER_MODES[compute_dtype]
+    if min(k, f, h, w) < 1:
+        raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
+                         f"F={f}, h={h}, w={w}")
+    dev = pcT.device
+    # scratch: pixel ids [B, K] int32, then (int8) scale [B, F] f32
+    pix_bytes = -(-b * k * 4 // 16) * 16
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = _scratch(pix_bytes + b * f * 4, dev, stream)
+    scale = buf.data_ptr() + pix_bytes if mode == 2 else None
+    means = torch.empty((b, h * w, f), device=dev)
+    cnt = torch.empty((b, h * w), device=dev)
+    _launch("cmr_raster_project", _ptr(pcT), _ptr(feat),
+            int(feat.dtype == torch.bfloat16), mode, _ptr(ab), _ptr(counts),
+            ctypes.c_void_p(scale), _ptr(buf), _ptr(means), _ptr(cnt),
+            b, k, f, h, w, ctypes.c_void_p(stream))
     segment_mean_count_image_project.launches += 1
     return means, cnt
 

@@ -1,6 +1,7 @@
-"""The two segment sums (kernels 5 and 7) timed alone, at the shapes their
-checks use and on the calls their paths make, one tree of the port per
-process, so that two trees can be compared in turns on one card.
+"""The two segment sums (kernels 5 and 7), the exact knn (kernel 3) and the
+projection-fused raster (kernel 4) timed alone, at the shapes their checks
+use and on the calls their paths make, one tree of the port per process,
+so that two trees can be compared in turns on one card.
 
   uniform  kernel 5 at the geo model's three shapes (points -> nodes, the
            knn neighbourhoods -> nodes, nodes -> proxies; F = embed_dim)
@@ -13,18 +14,33 @@ process, so that two trees can be compared in turns on one card.
            gradients and their ids, captured);
   request  kernel 7 on each of its calls in one composed request at the
            flagship options (f32), and kernel 7's device time in the whole
-           request (``--skip-request`` leaves this part out).
+           request (``--skip-request`` leaves this part out);
+  knn      kernel 3 at the serving shape (the nodes against themselves,
+           k = ``knn_k``) and on its call in one geo forward (random
+           weights, the synthetic batch from seed 0, captured);
+  raster   kernel 4 at the serving shape (the top-K rows of a random
+           cloud, some behind the camera) in f32, bf16 and int8, and on the
+           10 calls of one bf16 + int8 episode (the overlap head centred so
+           that about half the rows are valid, captured);
+  paths    the device time of whole paths, every kernel summed: one bf16 +
+           int8 serving episode (the overlap head centred) and one bf16 +
+           int8 composed request at the flagship options.
 
 A row holds the wrapper's ms (CUDA events around repeated calls), the
 device ms of every kernel whose name contains "segment" (``torch.profiler``,
 by name), whether two launches gave the same bits, how the ids spread
 (rows landing, most rows on one segment) and, for kernel 5, the ms of one
-``scatter_add_`` into a zeroed output with the index prepared. The tool
-imports the tree it runs from, so to time another tree (a parent's), copy
-this file into that tree's ``cmr_agent_tpu_torch/tools/`` and run it from
-that tree's root::
+``scatter_add_`` into a zeroed output with the index prepared. A knn or
+raster row holds the wrapper's ms, the device ms by name of the kernels
+whose names contain "knn" or "raster", the device ms of every kernel the
+call ran (PyTorch's passes around a kernel included) and whether two
+launches gave the same bits. The tool imports the tree it runs from and
+names no kernel, so to time another tree (a parent's), copy this file into
+that tree's ``cmr_agent_tpu_torch/tools/`` and run it from that tree's
+root::
 
     python -m cmr_agent_tpu_torch.tools.segment_turns [--tag NAME]
+        [--parts uniform,geo,request,knn,raster,paths]
 
 Prints one JSON line per row and, last, one with the totals per part;
 diagnostics on stderr. With ``--device cpu --config micro`` a rehearsal at
@@ -35,6 +51,7 @@ host clock and device times are null.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -60,15 +77,19 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def capture(name: str, fn):
+def capture_calls(name: str, fn):
     """Runs ``fn()`` with ``kernels.<name>`` recording copies of its
-    arguments ``(data, idx, num_segments)``; returns them in call order."""
+    arguments; returns ``(args, kwargs)`` per call, in call order."""
     calls = []
     wrapper = getattr(kernels, name)
 
-    def record(data, idx, m):
-        calls.append((data.detach().clone(), idx.clone(), int(m)))
-        return wrapper(data, idx, m)
+    def copy(a):
+        return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    def record(*args, **kw):
+        calls.append((tuple(copy(a) for a in args),
+                      {k: copy(v) for k, v in kw.items()}))
+        return wrapper(*args, **kw)
     # the wrapper counts its launches on the module's attribute
     record.launches = wrapper.launches
     setattr(kernels, name, record)
@@ -78,6 +99,13 @@ def capture(name: str, fn):
         wrapper.launches = record.launches
         setattr(kernels, name, wrapper)
     return calls
+
+
+def capture(name: str, fn):
+    """:func:`capture_calls` of a segment sum: ``(data, idx,
+    num_segments)`` per call."""
+    return [(args[0], args[1], int(args[2]))
+            for args, _ in capture_calls(name, fn)]
 
 
 def wall_ms(fn, iters: int, dev: torch.device) -> float:
@@ -91,15 +119,19 @@ def wall_ms(fn, iters: int, dev: torch.device) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def device_ms_by_name(fn, dev: torch.device, iters: int):
-    """Device ms per call of each kernel whose name holds "segment"; None
-    on the CPU."""
+def device_ms_by_name(fn, dev: torch.device, iters: int,
+                      key: str = "segment"):
+    """Device ms per call of each kernel whose name holds ``key`` (every
+    kernel for ``key=""``); None on the CPU."""
     if dev.type != "cuda":
         return None
     fn()
     by_name, _ = profile_device(fn, iters=iters)
-    return {k[:60]: t / iters for k, (t, _) in by_name.items()
-            if "segment" in k}
+    out = {}
+    for k, (t, _) in by_name.items():
+        if key in k:  # names cut to 60 characters: add those that meet
+            out[k[:60]] = out.get(k[:60], 0.0) + t / iters
+    return out
 
 
 def spread(idx: torch.Tensor, m: int) -> dict:
@@ -134,15 +166,140 @@ def row(part: str, name: str, data, idx, m: int, dev, iters: int) -> dict:
     return out
 
 
+def same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def call_row(part: str, name: str, key: str, args, kw, dev,
+             iters: int) -> dict:
+    """One knn or raster call: wrapper ms, device ms of the kernels whose
+    names hold ``key`` and of every kernel the call ran, same bits twice."""
+    fn = getattr(kernels, name)
+    first = fn(*args, **kw)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    out = dict(part=part, kernel=name, shape=[list(a.shape) for a in tensors],
+               dtypes=[str(a.dtype) for a in tensors],
+               options={k: str(v) for k, v in kw.items()},
+               same_bits=same_bits(fn(*args, **kw), first))
+    if name == "segment_mean_count_image_project":
+        out["valid_rows"] = int(args[3].sum())
+        out["landed_rows"] = int(first[1].sum())
+    del first
+    out["ms"] = wall_ms(lambda: fn(*args, **kw), iters, dev)
+    every = device_ms_by_name(lambda: fn(*args, **kw), dev,
+                              max(1, iters // 4), key="")
+    out["device_ms"] = (None if every is None else
+                        {k: t for k, t in every.items() if key in k})
+    out["device_all_ms"] = None if every is None else sum(every.values())
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def raster_cloud(b: int, k: int, f: int, h: int, w: int, dev,
+                 gen: torch.Generator):
+    """``(pcT, feat, ab, counts)`` of kernel 4 at a serving shape, drawn
+    from ``gen`` on the CPU: valid-first clouds through a yawed pinhole
+    camera, 20 pixels wider and 10 taller than the frame, a fortieth of the
+    rows behind the camera, a quarter to all of them valid, f32 features
+    (the dtype the bf16 episode hands the raster)."""
+    fx = 1.2 * w
+    z = torch.rand(b, k, generator=gen) * 38 + 2
+    u = torch.rand(b, k, generator=gen) * (w + 20) - 10
+    v = torch.rand(b, k, generator=gen) * (h + 10) - 5
+    pc = torch.stack([(u - w / 2) * z / fx, (v - h / 2) * z / fx, z], 1)
+    pc[:, 2, :k // 40] *= -1.0
+    feat = torch.randn(b, k, f, generator=gen)
+    counts = torch.randint(k // 4, k + 1, (b,), generator=gen,
+                           dtype=torch.int32)
+    cam = torch.tensor([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]])
+    yaw = torch.rand(b, generator=gen) * 0.2 - 0.1
+    R = torch.zeros(b, 3, 3)
+    R[:, 0, 0], R[:, 0, 2] = torch.cos(yaw), torch.sin(yaw)
+    R[:, 2, 0], R[:, 2, 2] = -torch.sin(yaw), torch.cos(yaw)
+    R[:, 1, 1] = 1.0
+    t = torch.randn(b, 3, generator=gen) * 0.3
+    ab = torch.cat([(cam @ R).reshape(b, 9), t @ cam.T], 1)
+    return (pc.contiguous().to(dev), feat.to(dev), ab.contiguous().to(dev),
+            counts.to(dev))
+
+
+def knn_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
+    """Kernel 3 at the serving shape, then on a geo forward's calls."""
+    xyz = (torch.randn(b, cfg.num_node, 3, generator=gen) * 20).to(dev)
+    rows.append(call_row("knn_uniform", "knn", "knn", (xyz, xyz, cfg.knn_k),
+                         {}, dev, iters))
+    batch, model, _, _ = serve.build_workload(cfg, b, dev, seed=0)
+    with torch.inference_mode():
+        calls = capture_calls("knn", lambda: model(batch))
+    for args, kw in calls:
+        rows.append(call_row("knn_path", "knn", "knn", args, kw, dev, iters))
+    del model, batch
+
+
+def raster_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
+    """Kernel 4 at the serving shape in f32, bf16 and int8, then on the
+    calls of one bf16 + int8 episode."""
+    k, f = cfg.episode_raster_topk() or cfg.num_pt // 2, cfg.embed_dim
+    pcT, feat, ab, counts = raster_cloud(b, k, f, cfg.image_h, cfg.image_w,
+                                         dev, gen)
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        rows.append(call_row(f"raster_{mode}", "segment_mean_count_image_"
+                             "project", "raster", (pcT, feat, ab, counts,
+                                                   cfg.image_h, cfg.image_w),
+                             {"compute_dtype": dt}, dev, iters))
+    ep_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    batch, model, agent, _ = serve.build_workload(ep_cfg, b, dev, seed=0)
+    serve.centre_overlap_head_(model, batch)
+    calls = capture_calls("segment_mean_count_image_project",
+                          lambda: serve.serve_episode(model, agent, ep_cfg,
+                                                      batch))
+    for args, kw in calls:
+        rows.append(call_row("raster_episode",
+                             "segment_mean_count_image_project", "raster",
+                             args, kw, dev, iters))
+    del model, agent, batch
+
+
+def paths_part(cfg, b: int, dev, result: dict) -> None:
+    """Device ms of one bf16 + int8 episode and one bf16 + int8 composed
+    request, every kernel summed (None on the CPU)."""
+    def device_total(fn, iters):
+        every = device_ms_by_name(fn, dev, iters, key="")
+        return None if every is None else sum(every.values())
+    ep_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    batch, model, agent, _ = serve.build_workload(ep_cfg, b, dev, seed=0)
+    serve.centre_overlap_head_(model, batch)
+    episode_ms = device_total(
+        lambda: serve.serve_episode(model, agent, ep_cfg, batch), 2)
+    del batch, model, agent
+    rcfg = dataclasses.replace(cfg, compute_dtype="bfloat16", **FLAGSHIP_CFG)
+    opts = dict(FLAGSHIP_OPTS, hypotheses=min(FLAGSHIP_OPTS["hypotheses"],
+                                              2 * rcfg.nlabel))
+    batch, _, pipeline = serve.build_composed_workload(rcfg, b, dev, seed=0,
+                                                       **opts)
+    with torch.no_grad():
+        request_ms = device_total(lambda: pipeline(batch), 1)
+    result["paths"] = {"episode_bf16_int8_device_ms": episode_ms,
+                       "request_bf16_int8_device_ms": request_ms}
+
+
 def total(rows, part: str) -> dict:
     picked = [r for r in rows if r["part"] == part]
     out = dict(calls=len(picked), ms=sum(r["ms"] for r in picked),
                same_bits=all(r["same_bits"] for r in picked))
     if picked and picked[0]["device_ms"] is not None:
         out["device_ms"] = sum(sum(r["device_ms"].values()) for r in picked)
+    if picked and picked[0].get("device_all_ms") is not None:
+        out["device_all_ms"] = sum(r["device_all_ms"] for r in picked)
     if picked and "scatter_add_ms" in picked[0]:
         out["scatter_add_ms"] = sum(r["scatter_add_ms"] for r in picked)
     return out
+
+
+PARTS = ("uniform", "geo", "request", "knn", "raster", "paths")
 
 
 def main(argv=None) -> dict:
@@ -156,9 +313,17 @@ def main(argv=None) -> dict:
                          "micro for a CPU rehearsal)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for a rehearsal")
-    ap.add_argument("--skip-request", action="store_true")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts to run, of " + ",".join(PARTS))
+    ap.add_argument("--skip-request", action="store_true",
+                    help="leave the request part out")
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
+    parts = [p for p in args.parts.split(",") if p]
+    if args.skip_request:
+        parts = [p for p in parts if p != "request"]
+    if not set(parts) <= set(PARTS):
+        raise ValueError(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     dev = serve.resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,6 +336,7 @@ def main(argv=None) -> dict:
     b, f = args.batch, cfg.embed_dim
     gen = torch.Generator().manual_seed(4321)
     rows = []
+    result = {"tag": args.tag, "device": str(dev)}
 
     def draw(n, m, width, *maps):
         data = torch.randn(b, n, width, generator=gen).to(dev)
@@ -178,44 +344,47 @@ def main(argv=None) -> dict:
                             dtype=torch.int32).to(dev)
         return data, idx
 
-    for n, m in ((cfg.num_pt, cfg.num_node),
-                 (cfg.num_node * cfg.knn_k, cfg.num_node),
-                 (cfg.num_node, cfg.num_proxy)):
-        data, idx = draw(n, m, f)
-        rows.append(row("uniform", "segment_sum", data, idx, m, dev,
-                        args.iters))
-    npix, warp_k = cfg.image_h * cfg.image_w, min(8192, cfg.num_pt)
-    data, idx = draw(warp_k, int(npix * 2.5), f + 2, args.hypotheses)
-    idx[:, 1] = npix
-    rows.append(row("uniform", "segment_sum_shared", data, idx, npix, dev,
-                    max(2, args.iters // 4)))
-    del data, idx
+    if "uniform" in parts:
+        for n, m in ((cfg.num_pt, cfg.num_node),
+                     (cfg.num_node * cfg.knn_k, cfg.num_node),
+                     (cfg.num_node, cfg.num_proxy)):
+            data, idx = draw(n, m, f)
+            rows.append(row("uniform", "segment_sum", data, idx, m, dev,
+                            args.iters))
+        npix, warp_k = cfg.image_h * cfg.image_w, min(8192, cfg.num_pt)
+        data, idx = draw(warp_k, int(npix * 2.5), f + 2, args.hypotheses)
+        idx[:, 1] = npix
+        rows.append(row("uniform", "segment_sum_shared", data, idx, npix,
+                        dev, max(2, args.iters // 4)))
+        del data, idx
+        result["uniform"] = [{k: r[k] for k in ("kernel", "shape", "ms",
+                                                "device_ms")} for r in rows
+                             if r["part"] == "uniform"]
 
-    from ..train.train_geo import create_geo_state, make_geo_train_step
-    batch = serve.synthetic_batch(cfg, b, dev, seed=0, keys=serve.TRAIN_KEYS)
-    state = create_geo_state(cfg, dev, seed=0)
-    step = make_geo_train_step(cfg)
-    step_gen = torch.Generator(device=dev).manual_seed(0)
-    step(state, batch, step_gen)
-    for data, idx, m in capture("segment_sum",
-                                lambda: step(state, batch, step_gen)):
-        rows.append(row("geo", "segment_sum", data, idx, m, dev, args.iters))
-    del state, batch
-    result = {"tag": args.tag, "device": str(dev),
-              "uniform": [{k: r[k] for k in ("kernel", "shape", "ms",
-                                             "device_ms")} for r in rows
-                          if r["part"] == "uniform"],
-              "geo": total(rows, "geo")}
+    if "geo" in parts:
+        from ..train.train_geo import create_geo_state, make_geo_train_step
+        batch = serve.synthetic_batch(cfg, b, dev, seed=0,
+                                      keys=serve.TRAIN_KEYS)
+        state = create_geo_state(cfg, dev, seed=0)
+        step = make_geo_train_step(cfg)
+        step_gen = torch.Generator(device=dev).manual_seed(0)
+        step(state, batch, step_gen)
+        for data, idx, m in capture("segment_sum",
+                                    lambda: step(state, batch, step_gen)):
+            rows.append(row("geo", "segment_sum", data, idx, m, dev,
+                            args.iters))
+        del state, batch
+        result["geo"] = total(rows, "geo")
 
-    if not args.skip_request:
-        cfg = kitti_config(compute_dtype="float32", **FLAGSHIP_CFG) \
+    if "request" in parts:
+        rcfg = kitti_config(compute_dtype="float32", **FLAGSHIP_CFG) \
             if args.config == "kitti" else CONFIGS[args.config](
                 compute_dtype="float32", **FLAGSHIP_CFG)
         # a small grid nominates at most 2 * nlabel candidates
-        opts = dict(FLAGSHIP_OPTS,
-                    hypotheses=min(FLAGSHIP_OPTS["hypotheses"], 2 * cfg.nlabel))
+        opts = dict(FLAGSHIP_OPTS, hypotheses=min(FLAGSHIP_OPTS["hypotheses"],
+                                                  2 * rcfg.nlabel))
         batch, _, pipeline = serve.build_composed_workload(
-            cfg, b, dev, seed=0, **opts)
+            rcfg, b, dev, seed=0, **opts)
         with torch.no_grad():
             pipeline(batch)
             device_sync(dev)
@@ -224,11 +393,22 @@ def main(argv=None) -> dict:
             for data, idx, m in calls:
                 rows.append(row("request", "segment_sum_shared", data, idx,
                                 m, dev, 3))
-        del calls
+        del calls, pipeline, batch
         result["request"] = total(rows, "request")
         result["request"]["kernel_in_request_device_ms"] = (
             None if by_name is None else
             sum(t for k, t in by_name.items() if "segment_sum_shared" in k))
+
+    if "knn" in parts:
+        knn_part(cfg, b, dev, gen, args.iters, rows)
+        result["knn"] = {p: total(rows, p) for p in ("knn_uniform",
+                                                     "knn_path")}
+    if "raster" in parts:
+        raster_part(cfg, b, dev, gen, args.iters, rows)
+        result["raster"] = {p: total(rows, p) for p in (
+            "raster_f32", "raster_bf16", "raster_int8", "raster_episode")}
+    if "paths" in parts:
+        paths_part(cfg, b, dev, result)
     print(json.dumps(result), flush=True)
     return result
 

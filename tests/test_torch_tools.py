@@ -262,9 +262,10 @@ def test_episode_trace_runs_on_cpu():
 
 
 def test_segment_turns_runs_on_cpu(capsys):
-    """The segment sums' turns tool at micro size: every part runs, the
-    request's kernel-7 calls are captured, and the wrappers (their plain
-    versions here) give the same bits twice."""
+    """The turns tool at micro size: every part runs, the request's
+    kernel-7 calls, the geo forward's knn call and the episode's raster
+    calls are captured, and the wrappers (their plain versions here) give
+    the same bits twice."""
     out = _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
                                       + ["--device", "cpu"])
     assert [r["kernel"] for r in out["uniform"]] == ["segment_sum"] * 3 + [
@@ -274,9 +275,37 @@ def test_segment_turns_runs_on_cpu(capsys):
     assert out["request"]["calls"] > 0 and out["request"]["same_bits"]
     assert out["request"]["kernel_in_request_device_ms"] is None
     assert out["geo"]["same_bits"] and out["device"] == "cpu"
+    assert out["knn"]["knn_uniform"]["calls"] == 1
+    assert out["knn"]["knn_path"]["calls"] == 1          # one geo forward
+    for part in ("raster_f32", "raster_bf16", "raster_int8"):
+        assert out["raster"][part]["calls"] == 1
+    # one raster a step of the micro episode
+    from cmr_agent_tpu_torch.config import micro_config
+    assert out["raster"]["raster_episode"]["calls"] == micro_config(
+        ).action_num
+    for totals in (out["knn"], out["raster"]):
+        assert all(t["same_bits"] and t["ms"] > 0.0 and "device_ms" not in t
+                   for t in totals.values())
+    assert out["paths"] == {"episode_bf16_int8_device_ms": None,
+                            "request_bf16_int8_device_ms": None}
     printed = capsys.readouterr().out.strip().splitlines()
     assert json.loads(printed[-1]) == out
-    assert all(json.loads(ln)["same_bits"] for ln in printed[:-1])
+    rows = [json.loads(ln) for ln in printed[:-1]]
+    assert all(r["same_bits"] for r in rows)
+    episode = [r for r in rows if r["part"] == "raster_episode"]
+    assert all(r["options"] == {"compute_dtype": "torch.int8"}
+               and r["valid_rows"] > 0 for r in episode)
+
+
+def test_segment_turns_parts_run_alone():
+    """``--parts`` picks the parts; an unknown part raises."""
+    out = _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
+                                      + ["--device", "cpu", "--parts",
+                                         "knn"])
+    assert set(out) == {"tag", "device", "knn"}
+    with pytest.raises(ValueError, match="unknown parts"):
+        _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
+                                    + ["--device", "cpu", "--parts", "nope"])
 
 
 @pytest.mark.parametrize("name", sorted(TOOL_ARGS))
