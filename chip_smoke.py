@@ -6,6 +6,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase geo_train --repeat 3   # one phase alone
     python3 chip_smoke.py --phase segment_sums           # kernels 5 and 7
     python3 chip_smoke.py --phase knn_raster             # kernels 3 and 4
+    python3 chip_smoke.py --phase softmax_image          # kernels 1 and 6a
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -63,8 +64,10 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     the plain kernels on the same input;
     the time of its stages alone on the same modules; a profile; and the
     whole request's candidate scores and poses against the plain-kernel
-    twin beside a second run of the kernels themselves (f32 atomics make
-    every run differ a little; held in f32, reported in bf16);
+    twin beside a second run of the kernels themselves (the port's kernels
+    on this path add in fixed orders, but PyTorch's own scatters and
+    cuDNN may not: the line says whether the two runs gave the same bits;
+    held in f32, reported in bf16);
 11. one serving episode under ``raster_mode`` "pack" and one under "mega"
     against their plain twins (one mask-pack launch each);
 12. the fused dense chain at the KITTI shapes of the fused eval stacks
@@ -103,7 +106,22 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     camera, every pixel filled, a 37x101 frame and an all-zero channel,
     then on the 10 calls of one bf16 + int8 episode; with each kernel's
     wrapper, device and host times and its bound in each mode; then both
-    wrappers raising, with no launch, on shapes the kernels cannot take.
+    wrappers raising, with no launch, on shapes the kernels cannot take;
+17. the segment softmax-attend and the pixel-id raster (kernels 1 and 6a,
+    also alone with ``--phase softmax_image``): kernel 1 within rtol 1e-5
+    atol 1e-6 of its plain version (gmax equal), bit-equal across two
+    launches, a bf16 call equal to the f32 call on the widened operands,
+    on the segment sums' id cases (one segment taking 90% of the rows, M =
+    1, empty ends, every row routed out by -1 and by >= M, samples drawn
+    differently) at full width, F = 3 and F = 66, an underflowing segment,
+    then on the 4 calls of one f32 and one bf16 geo forward, with its
+    backward on the new residuals; kernel 6a in f32, bf16 and int8 (counts
+    exact, int8 means bit-equal, f32 / bf16 rtol 1e-5 atol 1e-6, every
+    mode bit-equal across launches and to kernel 4 on the same rows) on
+    phase 16's raster cases, timed at the training shape, on the 40 calls
+    of one agent-training run and the 10 of one "flat" bf16 + int8
+    episode; a profile of one int8 call (the port's kernels only); then
+    both wrappers raising, with no launch, on what they cannot take.
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -113,6 +131,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import statistics
@@ -120,8 +139,9 @@ import subprocess
 import sys
 import time
 
-from cmr_agent_tpu_torch.tools.segment_turns import (capture, capture_calls,
-                                                     raster_cloud)
+from cmr_agent_tpu_torch.tools.segment_turns import (
+    agent_raster_calls, capture, capture_calls, flat_episode_raster_calls,
+    raster_cloud, train_raster_ids)
 from cmr_agent_tpu_torch.utils.profiling import cuda_ms, profile_device
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor-core)
@@ -162,24 +182,32 @@ def check_kernels(torch, kernels, dev):
     gen, randn, randint = rand_factory(torch, 1234, dev)
     rows = {}
 
-    # 1. segment softmax-attend: 3x points -> nodes, 1x nodes -> proxies
+    # 1. segment softmax-attend: 3x points -> nodes, 1x nodes -> proxies,
+    #    f32 and bf16 operands (the bf16 serving path's)
     for n, m in ((N_NODE, N_PROXY), (N_PT, N_NODE)):
         attn, values = randn(B, n, F, scale=2.0), randn(B, n, F)
         idx = randint(0, m, B, n)
-        got = kernels.segment_softmax_attend(attn, values, idx, m)
-        want = kernels.segment_softmax_attend_plain(attn, values, idx, m)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        err = (got - want).abs().max().item()
-    ms = cuda_ms(lambda: kernels.segment_softmax_attend(attn, values, idx, m),
-                 20)
-    plain_ms = cuda_ms(lambda: kernels.segment_softmax_attend_plain(
-        attn, values, idx, m), 5)
-    nbytes = 2 * B * N_PT * F * 4 + B * N_PT * 4 + B * N_NODE * F * 4
-    rows["segment_softmax_attend"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        tol="rtol 1e-5 atol 1e-6 (f32 atomics reorder sums)",
-        shape=f"[{B},{N_PT},{F}]->[{B},{N_NODE},{F}]",
-        bound=bound(nbytes, 6.0 * B * N_PT * F))
+        for dt in (torch.float32, torch.bfloat16):
+            a, v = attn.to(dt), values.to(dt)
+            got = kernels.segment_softmax_attend(a, v, idx, m)
+            want = kernels.segment_softmax_attend_plain(a, v, idx, m)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            assert torch.equal(kernels.segment_softmax_attend(a, v, idx, m),
+                               got)
+            err = (got - want).abs().max().item()
+            fn = functools.partial(kernels.segment_softmax_attend, a, v,
+                                   idx, m)
+            tag = "" if dt == torch.float32 else "_bf16"
+            rows[f"segment_softmax_attend{tag}"] = dict(
+                max_abs_err=err, ms=cuda_ms(fn, 20),
+                device_ms=kernel_device_ms(fn, SOFTMAX_KERNEL_NAMES),
+                plain_ms=cuda_ms(functools.partial(
+                    kernels.segment_softmax_attend_plain, a, v, idx, m), 5),
+                library_ms=None,
+                tol="rtol 1e-5 atol 1e-6 (f32 sums in a fixed order, expf); "
+                    "same bits on a second launch",
+                shape=f"[{B},{n},{F}] {str(dt)[6:]} -> [{B},{m},{F}]",
+                bound=softmax_bound(a, m))
 
     # 2. gather rows: node tables read by every point (f32, bf16, xyz) and
     #    by every knn slot
@@ -215,7 +243,8 @@ def check_kernels(torch, kernels, dev):
     assert r["landed"] > 0.3 * int(cloud[3].sum()), r["landed"]
     rows["segment_mean_count_image_project"] = dict(
         r, tol="counts exact; int8 means bit-equal; f32, bf16 means rtol "
-               "1e-5 atol 1e-6 (shared-memory atomics reorder f32 sums)",
+               "1e-5 atol 1e-6 (f32 sums in another order); same bits on a "
+               "second launch",
         shape=f"[{B},3,{RASTER_K}] F={F} {IMG_H}x{IMG_W} f32, "
               f"{int(cloud[3].sum())} valid rows, {r['landed']} in the frame")
 
@@ -277,8 +306,9 @@ def raster_modes(torch, kernels, pcT, feat, ab, counts, h: int, w: int,
                  label: str, timed: bool = True):
     """Kernel 4 against its plain version in f32, bf16 and int8 on one
     input: counts exact, int8 means bit-equal (exact integer sums, the same
-    scale), f32 / bf16 means within rtol 1e-5 atol 1e-6 (the shared-memory
-    atomics add in another order), int8 the same bits on a second launch.
+    scale), f32 / bf16 means within rtol 1e-5 atol 1e-6 (f32 sums in
+    another order), every mode the same bits on a second launch (each
+    pixel's rows are added in an order fixed by the ids).
     With ``timed`` each mode's wrapper, device, host and plain times and
     bound. Returns ``{mode: row}``; one ``[raster_mode]`` line a mode."""
     out = {}
@@ -295,7 +325,7 @@ def raster_modes(torch, kernels, pcT, feat, ab, counts, h: int, w: int,
             torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
         gm2, gc2 = kernels.segment_mean_count_image_project(*args)
         same = bool(torch.equal(gm2, gm) and torch.equal(gc2, gc))
-        assert same or mode != "int8", (label, mode)
+        assert same, (label, mode)
         r = dict(max_abs_err=err, same_bits=same, landed=int(wc.sum()),
                  library_ms=None)
         del gm, gc, wm, wc, gm2, gc2
@@ -445,13 +475,12 @@ TRAINING_KERNELS = ("segment_sum", "segment_softmax_attend_backward",
 COMPOSE_KERNELS = ("segment_sum_shared", "mask_compact_pack")
 FUSION_KERNELS = ("fused_dense_chain", "fused_dense_chain_cn",
                   "segment_sum_count_image_compact")
-PORT_KERNEL_NAMES = ("channel_max_kernel", "softmax_accumulate_kernel",
-                     "normalise_kernel", "gather_rows_kernel", "knn_kernel",
-                     "raster_prepass_kernel", "raster_band_kernel",
-                     "raster_finalise_kernel",
+PORT_KERNEL_NAMES = ("softmax_max_kernel", "softmax_bucket_kernel",
+                     "softmax_reduce_kernel", "gather_rows_kernel",
+                     "knn_kernel", "raster_prepass_kernel",
+                     "raster_band_kernel", "raster_finalise_kernel",
                      "segment_bucket_kernel", "segment_reduce_kernel",
-                     "softmax_backward_kernel",
-                     "raster_image_kernel", "segment_sum_shared_kernel",
+                     "softmax_backward_kernel", "segment_sum_shared_kernel",
                      "mask_count_kernel", "mask_pack_kernel",
                      "chain_mma_kernel", "chain_f32_kernel",
                      "raster_compact_kernel",
@@ -921,11 +950,11 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
         scale = want.abs().max().item()
         diff = (g - want).abs().max().item()
         floor = max((gn[n] - want).abs().max().item() for gn in nudged)
-        # The twins sum in other orders: kernel 1's f32 atomics, the plain
-        # versions' scatter_add_ atomics and cuDNN's convolution backward
-        # change their order on every run, kernel 5 adds in ascending row
-        # order. Within 1e-3 max|g|, or within 4x what a last-bit nudge of
-        # the input moves. The run-to-run order is one more draw of that
+        # The twins sum in other orders: the plain versions' scatter_add_
+        # atomics and cuDNN's convolution backward change their order on
+        # every run, kernels 1 and 5 add in ascending row order. Within
+        # 1e-3 max|g|, or within 4x what a last-bit nudge of the input
+        # moves. The run-to-run order is one more draw of that
         # noise: one run saw a single tensor of 995 at 1.37e-3 max|g|, 6.9x
         # its (then single) nudge, so at most 1% of the tensors may land
         # past the rule, within 2e-3 max|g|.
@@ -1432,10 +1461,10 @@ def run_composed(torch, kernels, serve, kitti_config, dtype: str):
     with plain_kernels(kernels):
         want = pipeline(batch)
     # The whole request is a chain of discrete choices (overlap thresholds,
-    # 160 episode steps, yaw nominations, accept / reject), and f32 atomics
-    # add in another order on every run, so two runs of the same kernels
-    # already differ wherever a choice was close. Reported: the entries of
-    # candidate_scores (z-scores, O(1)) within the tolerance of the plain
+    # 160 episode steps, yaw nominations, accept / reject), and where any
+    # sum on the path takes another order on another run, two runs of the
+    # same kernels already differ wherever a choice was close. Reported: the
+    # entries of candidate_scores (z-scores, O(1)) within the tolerance of the plain
     # twin's and of a second run of the kernels, and the selected pose on
     # the samples whose scores all agree, apart for those whose margin over
     # the next differently scoring candidate exceeds the tolerance
@@ -1457,6 +1486,9 @@ def run_composed(torch, kernels, serve, kitti_config, dtype: str):
 
     vs_plain, vs_self = agreement(got, want), agreement(got, again)
     line("composed_vs_plain", dtype=dtype, score_tol=tol,
+         same_bits_second_run=bool(
+             torch.equal(got["candidate_scores"], again["candidate_scores"])
+             and torch.equal(got["pose"], again["pose"])),
          entries=B * h, samples=B,
          selection_margins=",".join(
              f"{m:.3f}" for m in distinct_margin(
@@ -2132,7 +2164,8 @@ def run_tools(torch, kernels):
 
 
 def raster_variant(entry_line: str) -> str:
-    """``<type,mode-or-flag,V>`` of a kernel 4 template instance."""
+    """``<type,ints...>`` of a template instance on an operand type and
+    integers or flags (kernels 1, 4 and 6a)."""
     kind = "bf16" if "__nv_bfloat16" in entry_line else "f32"
     return "<" + ",".join([kind] + re.findall(r"L[ib](\d+)E", entry_line)) + ">"
 
@@ -2318,13 +2351,408 @@ def hold_raster_path(torch, kernels, calls) -> None:
          plain_ms=f"{cuda_ms(each(plain), 2):.5f}")
 
 
+# kernel 1's and kernel 6a's kernels, by name, for their device time
+SOFTMAX_KERNEL_NAMES = ("softmax_max_kernel", "softmax_bucket_kernel",
+                        "softmax_reduce_kernel")
+
+
+def softmax_bound(attn, m: int):
+    """Kernel 1's bound: attn and values read once in their dtype, the ids,
+    the [B, M, F] output written (the residual sums, which the serving
+    path does not need, not counted); 6 operations an element."""
+    b, n, f = attn.shape
+    nbytes = 2 * b * n * f * attn.element_size() + b * n * 4 + b * m * f * 4
+    return bound(nbytes, 6.0 * b * n * f)
+
+
+def softmax_cases(torch, gen):
+    """Kernel 1's edge cases, on the CPU: ``(kind, attn, values, idx, M)``
+    for :func:`segment_id_maps` at ``SEGMENT_CASE_SHAPES`` (the first at
+    full width), plus a segment whose logits lie 1000 below its sample's
+    max (exp underflows: its output is 0)."""
+    cases = []
+    for b, n, m_, f in SEGMENT_CASE_SHAPES:
+        attn = torch.randn(b, n, f, generator=gen) * 2
+        values = torch.randn(b, n, f, generator=gen)
+        for kind, (ix, m) in segment_id_maps(torch, gen, b, n, m_).items():
+            cases.append((f"{kind}[{n},{f}]", attn, values, ix, m))
+        ix = torch.randint(0, m_, (b, n), generator=gen, dtype=torch.int32)
+        ix[:, :5] = 3
+        under = attn.clone()
+        under[ix == 3] -= 1000.0
+        cases.append((f"underflow[{n},{f}]", under, values, ix, m_))
+    return cases
+
+
+def hold_softmax(torch, kernels, attn, values, idx, m: int, label: str):
+    """Kernel 1 on one call against its plain version: out and sums within
+    rtol 1e-5 atol 1e-6 (f32 sums in another order, expf within 2 ulp of
+    the correctly rounded exp), gmax equal; the same bits on a second
+    launch; a bf16 call (the call's own, or its operands rounded to bf16)
+    ``torch.equal`` to the f32 call on the widened operands. Returns the
+    largest error of out."""
+    got = kernels.segment_softmax_attend(attn, values, idx, m,
+                                         return_stats=True)
+    want = kernels.segment_softmax_attend_plain(attn, values, idx, m,
+                                                return_stats=True)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[2], want[2]), label
+    err = (got[0] - want[0]).abs().max().item() if got[0].numel() else 0.0
+    del want
+    again = kernels.segment_softmax_attend(attn, values, idx, m,
+                                           return_stats=True)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), label
+    del again
+    a16, v16 = attn.bfloat16(), values.bfloat16()
+    g16 = kernels.segment_softmax_attend(a16, v16, idx, m, return_stats=True)
+    w16 = kernels.segment_softmax_attend(a16.float(), v16.float(), idx, m,
+                                         return_stats=True)
+    assert all(torch.equal(x, y) for x, y in zip(g16, w16)), label
+    return err
+
+
+def softmax_timed_row(torch, kernels, attn, values, idx, m: int, shape: str,
+                      tol: str):
+    """Wrapper, device, host and plain times of one kernel 1 call, with its
+    bound."""
+    def fn():
+        return kernels.segment_softmax_attend(attn, values, idx, m)
+    return dict(
+        max_abs_err=hold_softmax(torch, kernels, attn, values, idx, m,
+                                 shape),
+        tol=tol, shape=shape, library_ms=None, ms=cuda_ms(fn, 20),
+        device_ms=kernel_device_ms(fn, SOFTMAX_KERNEL_NAMES),
+        host_us=host_us(torch, fn),
+        plain_ms=cuda_ms(lambda: kernels.segment_softmax_attend_plain(
+            attn, values, idx, m), 5),
+        bound=softmax_bound(attn, m))
+
+
+def geo_forward_softmax_calls(torch, serve, kitti_config, dtype: str):
+    """Kernel 1's calls in one geo forward (KITTI width, B=8, random
+    weights, seed 0) in ``dtype``, captured."""
+    cfg = kitti_config(compute_dtype=dtype)
+    batch, model, _, _ = serve.build_workload(cfg, B, seed=0)
+    with torch.inference_mode():
+        calls = capture_calls("segment_softmax_attend", lambda: model(batch))
+    del batch, model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def check_softmax_backward(torch, kernels, attn, values, idx, m: int):
+    """The backward kernel on the new forward's residuals (one of the geo
+    forward's calls, rows routed out both ways) against autograd of the
+    plain forward, as phase 5 holds it: rtol 1e-4, atol 1e-5 max|grad|;
+    then ``SegmentSoftmaxAttendFn`` on bf16 leaves: bf16 gradients within
+    one bf16 rounding (rtol 2^-7) of autograd of the plain version on the
+    same leaves."""
+    idx = routed_out(idx, m)
+    g = torch.randn(attn.shape[0], m, attn.shape[-1],
+                    generator=torch.Generator().manual_seed(17)).to(
+        attn.device)
+    out, sums, gmax = kernels.segment_softmax_attend(attn, values, idx, m,
+                                                     return_stats=True)
+    got = kernels.segment_softmax_attend_backward(attn, values, idx, out,
+                                                  sums, gmax, g, m)
+    a_, v_ = (t.detach().clone().requires_grad_() for t in (attn, values))
+    kernels.segment_softmax_attend_plain(a_, v_, idx, m).backward(g)
+    for a, b in zip(got, (a_.grad, v_.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * b.abs().max().item())
+    diffs = [(a - b).abs().max().item() for a, b in zip(got, (a_.grad,
+                                                             v_.grad))]
+    a16, v16 = (t.detach().bfloat16().requires_grad_() for t in (attn,
+                                                                 values))
+    kernels.SegmentSoftmaxAttendFn.apply(a16, v16, idx, m).backward(g)
+    p16, q16 = (t.detach().bfloat16().requires_grad_() for t in (attn,
+                                                                 values))
+    kernels.segment_softmax_attend_plain(p16, q16, idx, m).backward(g)
+    for a, b in ((a16.grad, p16.grad), (v16.grad, q16.grad)):
+        assert a.dtype == torch.bfloat16, a.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
+                                   atol=1e-5 * b.float().abs().max().item())
+    line("softmax_backward", shape=f"[{attn.shape[0]},{attn.shape[1]},"
+         f"{attn.shape[2]}]->{m}", tol="rtol 1e-4 atol 1e-5 max|g| vs "
+         "autograd of the plain forward; bf16 leaves within one bf16 "
+         "rounding", max_abs_diff_dattn=diffs[0], max_abs_diff_dvalues=diffs[1],
+         bf16_grad_dtype="bfloat16")
+
+
+def check_softmax_kernel(torch, kernels, serve, kitti_config, dev):
+    """Phase 17, kernel 1: :func:`hold_softmax` on every case of
+    :func:`softmax_cases` (``[softmax_case]``), timed at the serving shape
+    on f32 and bf16 operands; on the 4 calls of one f32 and one bf16 geo
+    forward (``[softmax_path]`` per call, ``[softmax_path_total]``:
+    wrapper, device, host and plain times); the backward on the new
+    residuals. Returns the rows at the serving shape."""
+    gen = torch.Generator().manual_seed(909)
+    for kind, attn, values, ix, m in softmax_cases(torch, gen):
+        attn, values, ix = attn.to(dev), values.to(dev), ix.to(dev)
+        err = hold_softmax(torch, kernels, attn, values, ix, m, kind)
+        ms = cuda_ms(lambda: kernels.segment_softmax_attend(attn, values, ix,
+                                                            m), 3)
+        line("softmax_case", kind=kind, m=m, max_abs_err=err,
+             same_bits=True, bf16_equals_widened=True, kernel_ms=f"{ms:.5f}")
+        if kind.startswith("underflow"):
+            out = kernels.segment_softmax_attend(attn, values, ix, m)
+            assert not out[:, 3].any(), kind
+    del attn, values, ix
+    _, randn, randint = rand_factory(torch, 1234, dev)
+    attn, values = randn(B, N_PT, F, scale=2.0), randn(B, N_PT, F)
+    idx = randint(0, N_NODE, B, N_PT)
+    tol = ("rtol 1e-5 atol 1e-6 (f32 sums in a fixed order, expf); gmax "
+           "equal; same bits on a second launch; bf16 equal to the f32 "
+           "call on the widened operands")
+    rows = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        r = softmax_timed_row(torch, kernels, attn.to(dt), values.to(dt),
+                              idx, N_NODE, f"[{B},{N_PT},{F}] {tag} -> "
+                              f"[{B},{N_NODE},{F}]", tol)
+        rows[tag] = r
+        print_rows({f"segment_softmax_attend[{tag}]": r})
+    del attn, values, idx
+    fn, plain = (kernels.segment_softmax_attend,
+                 kernels.PLAIN["segment_softmax_attend"])
+    for dtype in ("float32", "bfloat16"):
+        calls = geo_forward_softmax_calls(torch, serve, kitti_config, dtype)
+        assert len(calls) == 4, len(calls)
+        for i, (args, kw) in enumerate(calls):
+            attn, values, idx, m = args
+            err = hold_softmax(torch, kernels, attn, values, idx, m,
+                               f"geo_{dtype}_{i}")
+            flat = idx.long()
+            counts = torch.zeros(B, m + 1, dtype=torch.long, device=dev
+                                 ).scatter_add_(1, torch.where(
+                                     (flat >= 0) & (flat < m), flat, m),
+                                     torch.ones_like(flat))[:, :m]
+            line("softmax_path", forward=dtype, call=i,
+                 operands=str(attn.dtype).replace("torch.", ""),
+                 shape=f"[{B},{attn.shape[1]},{attn.shape[2]}]->{m}",
+                 max_rows_per_segment=int(counts.max()), max_abs_err=err,
+                 same_bits=True,
+                 kernel_ms=f"{cuda_ms(lambda: fn(*args, **kw), 5):.5f}")
+
+        def each(f):
+            return lambda: [f(*args, **kw) for args, kw in calls]
+        line("softmax_path_total", forward=dtype, calls=len(calls),
+             kernel_ms=f"{cuda_ms(each(fn), 5):.5f}",
+             device_ms=fmt_ms(kernel_device_ms(each(fn), SOFTMAX_KERNEL_NAMES,
+                                               iters=3)),
+             host_us=f"{host_us(torch, each(fn), iters=10):.1f}",
+             plain_ms=f"{cuda_ms(each(plain), 2):.5f}")
+        if dtype == "float32":
+            args = calls[0][0]
+            check_softmax_backward(torch, kernels, *args)
+        del calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def image_bound(data, ids, landed: int, hw: int, mode: str):
+    """Kernel 6a's bound: every id, the landing rows' features (int8: all
+    K rows', which the absmax reads) in their given dtype and the output,
+    each once; F + 1 adds a landing row."""
+    b, k, f = data.shape
+    feat_rows = b * k if mode == "int8" else landed
+    nbytes = (b * k * 4 + feat_rows * f * data.element_size()
+              + b * hw * (f + 1) * 4)
+    return bound(nbytes, (f + 1.0) * landed)
+
+
+def image_modes(torch, kernels, data, ids, h: int, w: int, label: str,
+                timed: bool = False, project=None):
+    """Kernel 6a against its plain version in f32, bf16 and int8 on one
+    input: counts exact, int8 means bit-equal, f32 / bf16 means within
+    rtol 1e-5 atol 1e-6, every mode the same bits on a second launch; with
+    ``project`` (``(pcT, ab, counts)`` whose projection gave ``ids``) equal
+    bit for bit to kernel 4, which runs the same band kernel on the same
+    rows. With ``timed`` each mode's wrapper, device, host and plain times
+    and bound. Returns ``{mode: row}``; one ``[image_mode]`` line a
+    mode."""
+    out = {}
+    for mode, dt in RASTER_MODES:
+        cdt = None if dt is None else getattr(torch, dt)
+        args = (data, ids, h, w, cdt)
+        gm, gc = kernels.segment_mean_count_image(*args)
+        wm, wc = kernels.segment_mean_count_image_plain(*args)
+        assert torch.equal(gc, wc), (label, mode)
+        err = (gm - wm).abs().max().item() if gm.numel() else 0.0
+        if mode == "int8":
+            assert torch.equal(gm, wm), (label, mode, err)
+        else:
+            torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
+        gm2, gc2 = kernels.segment_mean_count_image(*args)
+        assert torch.equal(gm2, gm) and torch.equal(gc2, gc), (label, mode)
+        if project is not None:
+            pcT, ab, counts = project
+            pm, pc = kernels.segment_mean_count_image_project(
+                pcT, data, ab, counts, h, w, cdt)
+            assert torch.equal(pm, gm) and torch.equal(pc, gc), (label, mode)
+            del pm, pc
+        r = dict(max_abs_err=err, landed=int(wc.sum()), library_ms=None)
+        del gm, gc, wm, wc, gm2, gc2
+
+        def fn():
+            return kernels.segment_mean_count_image(*args)
+        if timed:
+            r.update(ms=cuda_ms(fn, 20),
+                     device_ms=kernel_device_ms(fn, RASTER_KERNEL_NAMES),
+                     host_us=host_us(torch, fn),
+                     plain_ms=cuda_ms(lambda: kernels.
+                                      segment_mean_count_image_plain(*args),
+                                      5),
+                     bound=image_bound(data, ids, r["landed"], h * w, mode))
+        line("image_mode", case=label, mode=mode, data_dtype=str(
+            data.dtype).replace("torch.", ""), landed=r["landed"],
+             max_abs_err=err, same_bits=True,
+             equal_kernel4=project is not None,
+             **({} if not timed else dict(
+                 kernel_ms=f"{r['ms']:.5f}",
+                 device_ms=fmt_ms(r["device_ms"]),
+                 host_us=f"{r['host_us']:.1f}",
+                 plain_ms=f"{r['plain_ms']:.5f}",
+                 bound_us=f"{r['bound'][0] * 1e3:.2f}({r['bound'][1]})")))
+        out[mode] = r
+    return out
+
+
+def hold_image_path(torch, kernels, label: str, calls) -> None:
+    """Kernel 6a on the calls a path made: each call's inputs held in all
+    three modes (:func:`image_modes`) and its own call timed
+    (``[image_path]``); then all calls in turn (``[image_path_total]``:
+    wrapper, device, host and plain times)."""
+    fn, plain = (kernels.segment_mean_count_image,
+                 kernels.PLAIN["segment_mean_count_image"])
+    for i, (args, kw) in enumerate(calls):
+        data, ids, h, w = args[:4]
+        cdt = args[4] if len(args) > 4 else kw.get("compute_dtype")
+        modes = image_modes(torch, kernels, data, ids, h, w,
+                            f"{label}_{i}")
+        line("image_path", path=label, call=i, data_dtype=str(
+            data.dtype).replace("torch.", ""), compute_dtype=str(cdt),
+             landed=modes["f32"]["landed"],
+             kernel_ms=f"{cuda_ms(lambda: fn(*args, **kw), 5):.5f}")
+
+    def each(f):
+        return lambda: [f(*args, **kw) for args, kw in calls]
+    line("image_path_total", path=label, calls=len(calls),
+         kernel_ms=f"{cuda_ms(each(fn), 5):.5f}",
+         device_ms=fmt_ms(kernel_device_ms(each(fn), RASTER_KERNEL_NAMES,
+                                           iters=3)),
+         host_us=f"{host_us(torch, each(fn), iters=10):.1f}",
+         plain_ms=f"{cuda_ms(each(plain), 2):.5f}")
+
+
+def check_image_profile(torch, kernels, data, ids) -> None:
+    """One int8 call of kernel 6a under ``torch.profiler``: every kernel it
+    ran is one of the port's (no PyTorch quantisation or zero fill;
+    ``[image_profile]``)."""
+    def fn():
+        return kernels.segment_mean_count_image(data, ids, IMG_H, IMG_W,
+                                                torch.int8)
+    fn()
+    for _ in range(3):   # the profiler now and then returns no rows
+        by_name, _ = profile_device(fn)
+        if by_name:
+            break
+    names = sorted(by_name)
+    line("image_profile", mode="int8", kernels=repr(",".join(
+        k[:40] for k in names)) if names else "not measured")
+    assert all(any(n in k for n in RASTER_KERNEL_NAMES) for k in names), \
+        names
+
+
+def check_softmax_image_refusals(torch, kernels, dev) -> None:
+    """Kernels 1 and 6a raise on what they cannot take and count no launch:
+    kernel 1 past 65535 segments, with offsets past a block's shared
+    memory, on f16 or mixed operands; 6a with an unsupported compute dtype
+    or F past a block's shared memory (``[refusal]``)."""
+    before = kernels.launch_counts()
+    a = torch.zeros(1, 64, 8, device=dev)
+    ix = torch.zeros(1, 64, dtype=torch.int32, device=dev)
+    wide = torch.zeros(1, 64, 60000, device=dev)
+    cases = {
+        "softmax_m_65536": (RuntimeError, lambda: kernels.
+                            segment_softmax_attend(a, a, ix, 65536)),
+        "softmax_m_60000": (RuntimeError, lambda: kernels.
+                            segment_softmax_attend(a, a, ix, 60000)),
+        "softmax_f16": (TypeError, lambda: kernels.segment_softmax_attend(
+            a.half(), a.half(), ix, 4)),
+        "softmax_mixed": (TypeError, lambda: kernels.segment_softmax_attend(
+            a, a.bfloat16(), ix, 4)),
+        "image_f16": (ValueError, lambda: kernels.segment_mean_count_image(
+            a, ix, 4, 4, torch.float16)),
+    }
+    for mode, dt in RASTER_MODES:
+        cases[f"image_f60000_{mode}"] = (
+            RuntimeError, lambda dt=dt: kernels.segment_mean_count_image(
+                wide, ix, 4, 4, None if dt is None else getattr(torch, dt)))
+    for name, (kind, fn) in cases.items():
+        try:
+            fn()
+        except kind as e:
+            line("refusal", case=name, raised=type(e).__name__,
+                 message=repr(str(e)[:90]))
+        else:
+            raise AssertionError(f"{name}: no {kind.__name__}")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+
+
+def check_softmax_image(torch, kernels, serve, kitti_config, dev):
+    """Phase 17 (``--phase softmax_image``): kernel 1
+    (:func:`check_softmax_kernel`), then kernel 6a: :func:`image_modes` on
+    every case of :func:`raster_cases`, its ids projected by the plain
+    projection (and kernel 4 on the same case equal bit for bit), timed at
+    the training shape (phase 5's ids); on the 40 calls of one
+    agent-training run and the 10 of one "flat" bf16 + int8 episode
+    (:func:`hold_image_path`); a profile of one int8 call; then
+    :func:`check_softmax_image_refusals`. Returns the kernel 1 rows at
+    the serving shape and the 6a rows at the training shape."""
+    from cmr_agent_tpu_torch.ops import build
+    print_ptxas(build, "segment_softmax", SOFTMAX_KERNEL_NAMES,
+                raster_variant)
+    print_ptxas(build, "raster", RASTER_KERNEL_NAMES, raster_variant)
+    softmax_rows = check_softmax_kernel(torch, kernels, serve, kitti_config,
+                                        dev)
+    gen = torch.Generator().manual_seed(1717)
+    for kind, pcT, feat, ab, counts, h, w in raster_cases(torch, gen, dev):
+        ids = kernels._project_pixels(pcT, ab, counts, h, w).to(torch.int32)
+        modes = image_modes(torch, kernels, feat, ids, h, w, kind,
+                            project=(pcT, ab, counts))
+        landed = {r["landed"] for r in modes.values()}
+        if kind in ("one_pixel", "every_pixel"):
+            assert landed == {B * RASTER_K}, (kind, landed)
+        elif kind == "behind_camera":
+            assert landed == {0}, (kind, landed)
+    hw = IMG_H * IMG_W
+    ids = train_raster_ids(B, RASTER_K, hw, gen).to(dev)
+    data = torch.randn(B, RASTER_K, F, generator=gen).to(dev)
+    image_rows = image_modes(torch, kernels, data, ids, IMG_H, IMG_W,
+                             "training_shape", timed=True)
+    check_image_profile(torch, kernels, data, ids)
+    del data, ids
+    cfg = kitti_config()
+    hold_image_path(torch, kernels, "agent_train",
+                    agent_raster_calls(cfg, B, dev))
+    torch.cuda.empty_cache()
+    hold_image_path(torch, kernels, "flat_episode",
+                    flat_episode_raster_calls(cfg, B, dev))
+    torch.cuda.empty_cache()
+    check_softmax_image_refusals(torch, kernels, dev)
+    return softmax_rows, image_rows
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
     twins' gradients and losses, without the timed steps), "segment_sums"
     the gates and times of kernels 5 and 7 from phases 5 and 8, "chains"
-    phase 12, "knn_raster" phase 16 (kernels 3 and 4). Returns the number
-    of repeats that failed their gate."""
+    phase 12, "knn_raster" phase 16 (kernels 3 and 4), "softmax_image"
+    phase 17 (kernels 1 and 6a). Returns the number of repeats that failed
+    their gate."""
     failed = 0
     if phase == "segment_sums":
         geo_calls = geo_step_segment_calls(torch, kernels, serve, kitti_config,
@@ -2339,6 +2767,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 compare_geo_twins(torch, kernels, cfg, batch, dev)
             elif phase == "knn_raster":
                 check_knn_raster(torch, kernels, serve, kitti_config, dev)
+            elif phase == "softmax_image":
+                check_softmax_image(torch, kernels, serve, kitti_config, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -2359,14 +2789,14 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
-    geo_train|segment_sums|chains|knn_raster [--repeat N]`` builds the
-    kernels and runs that one phase N times instead (exit code 1 if any
-    repeat failed its gate)."""
+    geo_train|segment_sums|chains|knn_raster|softmax_image [--repeat N]``
+    builds the kernels and runs that one phase N times instead (exit code 1
+    if any repeat failed its gate)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
-                             "knn_raster"),
+                             "knn_raster", "softmax_image"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     opts = ap.parse_args(argv)
@@ -2406,7 +2836,7 @@ def main(argv=None) -> int:
 
     rows = check_kernels(torch, kernels, dev)
     counts, _ = run_path(torch, kernels, serve, kitti_config, "float32")
-    run_path(torch, kernels, serve, kitti_config, "bfloat16")
+    bf16_counts, _ = run_path(torch, kernels, serve, kitti_config, "bfloat16")
 
     train_rows, _ = check_train_kernels(torch, kernels, serve, kitti_config,
                                         dev)
@@ -2453,10 +2883,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     check_knn_raster(torch, kernels, serve, kitti_config, dev)
     line("eighth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
-    # each kernel's launches on the path that runs it: the serving episode,
-    # one geo train step, the agent training run, one composed request, the
-    # "pack" episode, the fused ("all", f32) episode, the "compact" (f32)
-    # or the "flat" (bf16 + int8) episode, the three raster probes
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    check_softmax_image(torch, kernels, serve, kitti_config, dev)
+    line("ninth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    # each kernel's launches on the path that runs it: the serving episode
+    # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
+    # agent training run, one composed request, the "pack" episode, the
+    # fused ("all", f32) episode, the "compact" (f32) or the "flat" (bf16 +
+    # int8) episode, the three raster probes
+    counts["segment_softmax_attend_bf16"] = bf16_counts[
+        "segment_softmax_attend"]
     counts.update({k: geo_counts[k] for k in ("segment_sum",
                                                "segment_softmax_attend_backward")})
     counts["segment_mean_count_image"] = agent_counts["segment_mean_count_image"]
@@ -2472,19 +2910,20 @@ def main(argv=None) -> int:
 
     sources = {
         "segment_softmax_attend": ("segment_softmax.cu", 126),
+        "segment_softmax_attend_bf16": ("segment_softmax.cu", 126),
         "gather_rows": ("gather_rows.cu", 489),
         "knn": ("knn.cu", 395),
         "segment_mean_count_image_project": ("raster.cu", 1579),
         "segment_sum": ("segment_sum.cu", 258),
         "segment_softmax_attend_backward": ("segment_softmax_backward.cu",
                                             145),
-        "segment_mean_count_image": ("raster_image.cu", 685),
+        "segment_mean_count_image": ("raster.cu", 685),
         "segment_sum_shared": ("segment_sum_shared.cu", 320),
         "mask_compact_pack": ("mask_pack.cu", 1467),
         "fused_dense_chain": ("dense_chain.cu", 1138),
         "fused_dense_chain_cn": ("dense_chain.cu", 1347),
         "segment_sum_count_image_compact": ("raster_compact.cu", 857),
-        "segment_mean_count_image_int8": ("raster_image.cu", 685),
+        "segment_mean_count_image_int8": ("raster.cu", 685),
         "segment_sum_image_factored": ("raster_factored.cu", 685),
     }
     summary = {"kernels": [

@@ -53,8 +53,10 @@ class GroupPointTransformer(nn.Module):
         pos = self.fc_delta((xyz - centers).to(x_feat.dtype))
         attn = self.fc_gamma(q_at_pt - k + pos)
         attn = attn / math.sqrt(f)
+        # the kernel reads f32 or bf16 as given and widens in registers
+        # (exact, the JAX package's cast to f32); its output is f32
         agg = batched_segment_softmax_attend(
-            attn.float().contiguous(), (v + pos).float().contiguous(), idx, m)
+            attn.contiguous(), (v + pos).contiguous(), idx, m)
         return self.fc2(agg.to(attn.dtype)) + node_feat
 
 

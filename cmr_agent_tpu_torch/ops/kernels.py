@@ -57,7 +57,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cmr_segment_softmax_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_segment_softmax_attend": [_P, _P, _I, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _P],
+    "cmr_segment_softmax_scratch_bytes": [_I, _I, _I, _I],
     "cmr_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_knn": [_P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_raster_project": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -66,7 +68,7 @@ _SIGNATURES = {
     "cmr_segment_sum_scratch_bytes": [_I, _I, _I, _I],
     "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _P],
-    "cmr_raster_image": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_raster_image": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_segment_sum_shared": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_mask_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_raster_compact": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -78,7 +80,8 @@ _SIGNATURES = {
     "cmr_error_string": [_I],
 }
 _RESTYPES = {"cmr_error_string": ctypes.c_char_p,
-             "cmr_segment_sum_scratch_bytes": ctypes.c_longlong}
+             "cmr_segment_sum_scratch_bytes": ctypes.c_longlong,
+             "cmr_segment_softmax_scratch_bytes": ctypes.c_longlong}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -148,24 +151,27 @@ def segment_softmax_attend_plain(attn: torch.Tensor, values: torch.Tensor,
                                  return_stats: bool = False):
     """Per-channel softmax of ``attn [B,N,F]`` within each segment
     ``idx [B,N]``, then the softmax-weighted sum of ``values`` per segment
-    -> ``[B,M,F]`` f32. Stabilised by the global per-(b, channel) max
-    (exact: the shift is constant within every segment). Empty segments
-    give 0; idx outside [0, M) contributes nothing.
+    -> ``[B,M,F]``. Stabilised by the global per-(b, channel) max (exact:
+    the shift is constant within every segment). Empty segments give 0;
+    idx outside [0, M) contributes nothing.
 
     ``return_stats=True`` returns ``(out, sums [B,M,F], gmax [B,F])``, the
     residuals of :func:`segment_softmax_attend_backward`.
 
-    The shifted logits ``attn - gmax`` are rounded to the input's dtype,
-    as the kernels round them; ``exp`` is taken in f64 and rounded once to
-    that dtype (the correctly rounded exp, whatever vector library the
-    host's f32 ``exp`` would reach); the per-segment sums and weighted sums
-    are f64, and the output is rounded once. So the answer does not depend
-    on the host, and on the card it differs from the kernel's only where
-    ``expf`` is not correctly rounded and in the f32 rounding and order of
-    the sums."""
+    bf16 operands are widened to f32 first (exact, as the kernel widens
+    them), so the answer is f32 and equals the f32 call on the widened
+    tensors; f32 and f64 stay as they are. The shifted logits ``attn -
+    gmax`` are rounded to that dtype, as the kernel rounds them; ``exp`` is
+    taken in f64 and rounded once to it (the correctly rounded exp,
+    whatever vector library the host's f32 ``exp`` would reach); the
+    per-segment sums and weighted sums are f64, and the output is rounded
+    once. So the answer does not depend on the host, and on the card it
+    differs from the kernel's only where ``expf`` is not correctly rounded
+    and in the f32 rounding of the sums."""
+    dt = torch.promote_types(attn.dtype, torch.float32)
+    attn, values = attn.to(dt), values.to(dt)
     b, n, f = attn.shape
     m = num_segments
-    dt = attn.dtype
     gmax = attn.amax(dim=1)
     e = torch.exp((attn - gmax[:, None, :]).double()).to(dt).double()
     valid = (idx >= 0) & (idx < m)
@@ -180,27 +186,43 @@ def segment_softmax_attend_plain(attn: torch.Tensor, values: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _segment_softmax_scratch_bytes(b: int, n: int, m: int, f: int) -> int:
+    return library().cmr_segment_softmax_scratch_bytes(b, n, m, f)
+
+
 def segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
                            idx: torch.Tensor, num_segments: int,
                            return_stats: bool = False):
-    """Kernel wrapper of :func:`segment_softmax_attend_plain`: f32
-    ``attn``/``values`` ``[B,N,F]``, int32 ``idx [B,N]``. The kernel fills
-    ``sums`` and ``gmax`` on its way, so ``return_stats`` costs nothing."""
+    """Kernel wrapper of :func:`segment_softmax_attend_plain`: ``attn`` and
+    ``values`` ``[B,N,F]`` both f32 or both bf16, read as given and widened
+    in registers (the output is f32); int32 ``idx [B,N]``;
+    ``num_segments`` at most 65535. The kernel buckets the rows by segment
+    and writes ``out``, ``sums`` and ``gmax`` once each, every segment's
+    rows added in ascending order in fixed pieces: the same bits on every
+    run, and ``return_stats`` costs nothing."""
     if not _on_cuda(attn, values, idx):
         return segment_softmax_attend_plain(attn, values, idx, num_segments,
                                             return_stats)
     b, n, f = attn.shape
     m = int(num_segments)
-    _require("attn", attn, (torch.float32,), (b, n, f))
-    _require("values", values, (torch.float32,), (b, n, f))
+    _require("attn", attn, (torch.float32, torch.bfloat16), (b, n, f))
+    _require("values", values, (attn.dtype,), (b, n, f))
     _require("idx", idx, (torch.int32,), (b, n))
-    if m < 1:
-        raise ValueError(f"num_segments must be positive, got {m}")
-    gmax = torch.full((b, f), float("-inf"), device=attn.device)
-    sums = torch.zeros((b, m, f), device=attn.device)
-    out = torch.zeros((b, m, f), device=attn.device)
-    _launch("cmr_segment_softmax_attend", _ptr(attn), _ptr(values), _ptr(idx),
-            _ptr(gmax), _ptr(sums), _ptr(out), b, n, m, f, _stream())
+    if min(m, n, f) < 1:
+        raise ValueError(f"segment softmax kernel needs N, F and "
+                         f"num_segments >= 1; got N={n}, F={f}, M={m}")
+    dev = attn.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(_segment_softmax_scratch_bytes(b, n, m, f), dev,
+                       stream)
+    gmax = torch.empty((b, f), device=dev)
+    sums = torch.empty((b, m, f), device=dev)
+    out = torch.empty((b, m, f), device=dev)
+    _launch("cmr_segment_softmax_attend", _ptr(attn), _ptr(values),
+            int(attn.dtype == torch.bfloat16), _ptr(idx), _ptr(scratch),
+            _ptr(gmax), _ptr(sums), _ptr(out), b, n, m, f,
+            ctypes.c_void_p(stream))
     segment_softmax_attend.launches += 1
     return (out, sums, gmax) if return_stats else out
 
@@ -569,9 +591,10 @@ segment_softmax_attend_backward.launches = 0
 # --------------------------------------------------------------------------
 
 def _pixel_id_raster(data, ids, h: int, w: int, compute_dtype, fn=None):
-    """The pixel-id rasters' common part: plain (``fn`` None) ``(sums,
-    counts)``, or the C entry point ``fn`` launched -> its ``(means or
-    sums, counts)``. Ids outside ``[0, h*w)`` are routed out."""
+    """The plain pixel-id rasters' common part (``fn`` None): ``(sums,
+    counts)``; or the compacting raster's C entry point ``fn`` launched on
+    the operands quantised here -> its ``(sums, counts)``. Ids outside
+    ``[0, h*w)`` are routed out."""
     hw = h * w
     q, scale = _operands(data, compute_dtype)
     if fn is None:
@@ -628,19 +651,39 @@ def segment_mean_count_image(
         data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
         compute_dtype=None, factored: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of :func:`segment_mean_count_image_plain`: f32 or
-    bf16 ``data``, int32 ``ids``; int8 accumulates in exact int32.
-    ``factored=True`` goes through :class:`SegmentSumImageFn` (the factored
-    kernel, counted by :func:`segment_sum_image`, with its gradient); the
-    episodes keep the default."""
+    """Kernel wrapper of :func:`segment_mean_count_image_plain`: ``data``
+    f32 or bf16, read as it comes; int32 ``ids``. The bf16 rounding and the
+    int8 quantisation (``scale`` by a reduction kernel over all K rows, as
+    :func:`quantize_int8`) happen on the card, in the projection-fused
+    raster's band kernel (``csrc/raster.cu``): each output element written
+    once, the same bits on every launch. ``factored=True`` goes through
+    :class:`SegmentSumImageFn` (the factored kernel, counted by
+    :func:`segment_sum_image`, with its gradient); the episodes keep the
+    default."""
     if factored:
         return _factored_mean_count(SegmentSumImageFn.apply, data, ids, h, w,
                                     compute_dtype)
     if not _on_cuda(data, ids):
         return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
-    out = _pixel_id_raster(data, ids, h, w, compute_dtype, "cmr_raster_image")
+    b, k, f = data.shape
+    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
+    _require("ids", ids, (torch.int32,), (b, k))
+    if compute_dtype not in _RASTER_MODES:
+        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
+    mode = _RASTER_MODES[compute_dtype]
+    if min(k, f, h, w) < 1:
+        raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
+                         f"F={f}, h={h}, w={w}")
+    dev = data.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = _scratch(b * f * 4, dev, stream) if mode == 2 else None
+    means = torch.empty((b, h * w, f), device=dev)
+    cnt = torch.empty((b, h * w), device=dev)
+    _launch("cmr_raster_image", _ptr(data), int(data.dtype == torch.bfloat16),
+            mode, _ptr(ids), _ptr(scale), _ptr(means), _ptr(cnt), b, k, f,
+            h * w, ctypes.c_void_p(stream))
     segment_mean_count_image.launches += 1
-    return out
+    return means, cnt
 
 
 segment_mean_count_image.launches = 0
@@ -1092,10 +1135,12 @@ class SegmentSoftmaxAttendFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         attn, values, idx, out, sums, gmax = ctx.saved_tensors
+        # bf16 operands widened as the forward widened them; the gradients
+        # come back in the operands' dtypes (the VJP of the widening cast)
         dattn, dvalues = segment_softmax_attend_backward(
-            attn, values, idx, out, sums, gmax, grad.contiguous(),
-            ctx.num_segments)
-        return dattn, dvalues, None, None
+            attn.float(), values.float(), idx, out, sums, gmax,
+            grad.float().contiguous(), ctx.num_segments)
+        return dattn.to(attn.dtype), dvalues.to(values.dtype), None, None
 
 
 class GatherRowsFn(torch.autograd.Function):

@@ -1,7 +1,8 @@
-"""The two segment sums (kernels 5 and 7), the exact knn (kernel 3) and the
-projection-fused raster (kernel 4) timed alone, at the shapes their checks
-use and on the calls their paths make, one tree of the port per process,
-so that two trees can be compared in turns on one card.
+"""The two segment sums (kernels 5 and 7), the exact knn (kernel 3), the
+projection-fused raster (kernel 4), the segment softmax-attend (kernel 1)
+and the pixel-id raster (kernel 6a) timed alone, at the shapes their
+checks use and on the calls their paths make, one tree of the port per
+process, so that two trees can be compared in turns on one card.
 
   uniform  kernel 5 at the geo model's three shapes (points -> nodes, the
            knn neighbourhoods -> nodes, nodes -> proxies; F = embed_dim)
@@ -24,23 +25,36 @@ so that two trees can be compared in turns on one card.
            that about half the rows are valid, captured);
   paths    the device time of whole paths, every kernel summed: one bf16 +
            int8 serving episode (the overlap head centred) and one bf16 +
-           int8 composed request at the flagship options.
+           int8 composed request at the flagship options;
+  softmax  kernel 1 at the serving shape (points -> nodes, uniform ids) on
+           f32 and on bf16 operands, and on the 4 calls of one geo forward
+           in f32 and in bf16, with each geo forward's whole device time (a
+           tree whose kernel reads f32 only gets bf16 operands widened by
+           the caller, as its point encoder widened them, the cast counted
+           in the call: ``widened_by_caller``);
+  image    kernel 6a at the training shape (valid-first rows, a third of
+           the valid prefix outside the frame) in f32, bf16 and int8, on
+           the calls of one agent-training run's rollouts and on the 10
+           calls of one "flat" bf16 + int8 episode (the overlap head
+           centred).
 
 A row holds the wrapper's ms (CUDA events around repeated calls), the
 device ms of every kernel whose name contains "segment" (``torch.profiler``,
 by name), whether two launches gave the same bits, how the ids spread
 (rows landing, most rows on one segment) and, for kernel 5, the ms of one
-``scatter_add_`` into a zeroed output with the index prepared. A knn or
-raster row holds the wrapper's ms, the device ms by name of the kernels
-whose names contain "knn" or "raster", the device ms of every kernel the
-call ran (PyTorch's passes around a kernel included) and whether two
-launches gave the same bits. The tool imports the tree it runs from and
+``scatter_add_`` into a zeroed output with the index prepared. A knn,
+raster, softmax or image row holds the wrapper's ms, the device ms by name
+of the kernels whose names contain "knn", "raster" or "softmax", the
+device ms of every kernel the call ran (``device_all_ms``: PyTorch's
+passes around a kernel, its fills and casts, included; the name filter
+misses kernels of older trees named otherwise, such as an older kernel
+1's ``channel_max_kernel``) and whether two launches gave the same bits. The tool imports the tree it runs from and
 names no kernel, so to time another tree (a parent's), copy this file into
 that tree's ``cmr_agent_tpu_torch/tools/`` and run it from that tree's
 root::
 
     python -m cmr_agent_tpu_torch.tools.segment_turns [--tag NAME]
-        [--parts uniform,geo,request,knn,raster,paths]
+        [--parts uniform,geo,request,knn,raster,paths,softmax,image]
 
 Prints one JSON line per row and, last, one with the totals per part;
 diagnostics on stderr. With ``--device cpu --config micro`` a rehearsal at
@@ -122,11 +136,16 @@ def wall_ms(fn, iters: int, dev: torch.device) -> float:
 def device_ms_by_name(fn, dev: torch.device, iters: int,
                       key: str = "segment"):
     """Device ms per call of each kernel whose name holds ``key`` (every
-    kernel for ``key=""``); None on the CPU."""
+    kernel for ``key=""``); None on the CPU. A profile that recorded no
+    device row at all (``torch.profiler`` now and then returns none for a
+    short window) is taken again, up to three times."""
     if dev.type != "cuda":
         return None
     fn()
-    by_name, _ = profile_device(fn, iters=iters)
+    for _ in range(3):
+        by_name, _ = profile_device(fn, iters=iters)
+        if by_name:
+            break
     out = {}
     for k, (t, _) in by_name.items():
         if key in k:  # names cut to 60 characters: add those that meet
@@ -173,23 +192,29 @@ def same_bits(a, b) -> bool:
 
 
 def call_row(part: str, name: str, key: str, args, kw, dev,
-             iters: int) -> dict:
-    """One knn or raster call: wrapper ms, device ms of the kernels whose
-    names hold ``key`` and of every kernel the call ran, same bits twice."""
+             iters: int, prep=None) -> dict:
+    """One kernel call: wrapper ms, device ms of the kernels whose names
+    hold ``key`` and of every kernel the call ran, same bits twice.
+    ``prep`` maps the arguments at every call (its work is timed too)."""
     fn = getattr(kernels, name)
-    first = fn(*args, **kw)
+
+    def call():
+        return fn(*(args if prep is None else prep(args)), **kw)
+    first = call()
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     out = dict(part=part, kernel=name, shape=[list(a.shape) for a in tensors],
                dtypes=[str(a.dtype) for a in tensors],
                options={k: str(v) for k, v in kw.items()},
-               same_bits=same_bits(fn(*args, **kw), first))
+               same_bits=same_bits(call(), first))
+    if prep is not None:
+        out["widened_by_caller"] = True
     if name == "segment_mean_count_image_project":
         out["valid_rows"] = int(args[3].sum())
+    if name.startswith("segment_mean_count_image"):
         out["landed_rows"] = int(first[1].sum())
     del first
-    out["ms"] = wall_ms(lambda: fn(*args, **kw), iters, dev)
-    every = device_ms_by_name(lambda: fn(*args, **kw), dev,
-                              max(1, iters // 4), key="")
+    out["ms"] = wall_ms(call, iters, dev)
+    every = device_ms_by_name(call, dev, max(3, iters // 4), key="")
     out["device_ms"] = (None if every is None else
                         {k: t for k, t in every.items() if key in k})
     out["device_all_ms"] = None if every is None else sum(every.values())
@@ -263,6 +288,111 @@ def raster_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
     del model, agent, batch
 
 
+def softmax_prep(args):
+    """None where this tree's kernel 1 takes the call's operands as they
+    are; else (a tree whose kernel reads f32 only, given bf16) the
+    caller's widening of attn and values to f32."""
+    try:
+        kernels.segment_softmax_attend(*args)
+        return None
+    except TypeError:
+        return lambda a: (a[0].float(), a[1].float(), *a[2:])
+
+
+def softmax_part(cfg, b: int, dev, gen, iters: int, rows: list,
+                 result: dict) -> None:
+    """Kernel 1 at the serving shape on f32 and bf16 operands, then on the
+    calls of one f32 and one bf16 geo forward, with each forward's whole
+    device time (every kernel summed; None on the CPU)."""
+    n, m, f = cfg.num_pt, cfg.num_node, cfg.embed_dim
+    attn = (torch.randn(b, n, f, generator=gen) * 2).to(dev)
+    values = torch.randn(b, n, f, generator=gen).to(dev)
+    idx = torch.randint(0, m, (b, n), generator=gen,
+                        dtype=torch.int32).to(dev)
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (attn.to(dt), values.to(dt), idx, m)
+        rows.append(call_row(f"softmax_{tag}", "segment_softmax_attend",
+                             "softmax", args, {}, dev, iters,
+                             softmax_prep(args)))
+    del attn, values, idx
+    for dtype in ("float32", "bfloat16"):
+        g_cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        batch, model, _, _ = serve.build_workload(g_cfg, b, dev, seed=0)
+        with torch.inference_mode():
+            calls = capture_calls("segment_softmax_attend",
+                                  lambda: model(batch))
+            for args, kw in calls:
+                rows.append(call_row(f"softmax_geo_{dtype}",
+                                     "segment_softmax_attend", "softmax",
+                                     args, kw, dev, iters,
+                                     softmax_prep(args)))
+            every = device_ms_by_name(lambda: model(batch), dev, 2, key="")
+        result[f"geo_forward_{dtype}_device_ms"] = (
+            None if every is None else sum(every.values()))
+        del batch, model, calls
+
+
+def train_raster_ids(b: int, k: int, hw: int, gen: torch.Generator):
+    """Pixel ids ``[b, k]`` int32 (CPU) of a training raster: valid-first,
+    a quarter to all of the rows valid, a third of the valid prefix
+    outside the frame (``hw``)."""
+    counts = torch.randint(k // 4, k + 1, (b, 1), generator=gen)
+    row = torch.arange(k)[None, :]
+    lands = (row < counts) & (torch.rand(b, k, generator=gen) > 1 / 3)
+    return torch.where(lands, torch.randint(0, hw, (b, k), generator=gen),
+                       torch.full((b, k), hw)).to(torch.int32)
+
+
+def agent_raster_calls(cfg, b: int, dev):
+    """Kernel 6a's calls in one agent-training run's ``num_trajectory``
+    rollouts (random weights, the synthetic batch from seed 0), captured:
+    ``(args, kwargs)`` per call."""
+    from ..train import train_agent, train_geo
+    batch = serve.synthetic_batch(cfg, b, dev, seed=0, keys=serve.TRAIN_KEYS)
+    geo = train_geo.create_geo_state(cfg, dev, seed=0).model
+    geo_out = train_geo.make_geo_forward(cfg)(geo, batch)
+    state = train_agent.create_agent_state(cfg, dev, seed=1)
+    rollout = train_agent.make_rollout_fn(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return capture_calls("segment_mean_count_image", lambda: [
+        rollout(state, geo_out, batch, gen)
+        for _ in range(cfg.num_trajectory)])
+
+
+def flat_episode_raster_calls(cfg, b: int, dev):
+    """Kernel 6a's calls in one "flat" bf16 + int8 serving episode (seed
+    0, the overlap head centred), captured."""
+    ep_cfg = dataclasses.replace(cfg, raster_mode="flat",
+                                 compute_dtype="bfloat16")
+    batch, model, agent, _ = serve.build_workload(ep_cfg, b, dev, seed=0)
+    serve.centre_overlap_head_(model, batch)
+    return capture_calls("segment_mean_count_image",
+                         lambda: serve.serve_episode(model, agent, ep_cfg,
+                                                     batch))
+
+
+def image_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
+    """Kernel 6a at the training shape in f32, bf16 and int8, then on the
+    calls of one agent-training run and of one "flat" bf16 + int8
+    episode."""
+    h, w, f = cfg.image_h, cfg.image_w, cfg.embed_dim
+    k = cfg.episode_raster_topk() or cfg.num_pt // 2
+    ids = train_raster_ids(b, k, h * w, gen).to(dev)
+    data = torch.randn(b, k, f, generator=gen).to(dev)
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        rows.append(call_row(f"image_{mode}", "segment_mean_count_image",
+                             "raster", (data, ids, h, w, dt), {}, dev,
+                             iters))
+    del data, ids
+    for part, calls in (("image_train", agent_raster_calls(cfg, b, dev)),
+                        ("image_flat_episode",
+                         flat_episode_raster_calls(cfg, b, dev))):
+        for args, kw in calls:
+            rows.append(call_row(part, "segment_mean_count_image", "raster",
+                                 args, kw, dev, max(2, iters // 4)))
+
+
 def paths_part(cfg, b: int, dev, result: dict) -> None:
     """Device ms of one bf16 + int8 episode and one bf16 + int8 composed
     request, every kernel summed (None on the CPU)."""
@@ -299,7 +429,8 @@ def total(rows, part: str) -> dict:
     return out
 
 
-PARTS = ("uniform", "geo", "request", "knn", "raster", "paths")
+PARTS = ("uniform", "geo", "request", "knn", "raster", "paths", "softmax",
+         "image")
 
 
 def main(argv=None) -> dict:
@@ -409,6 +540,17 @@ def main(argv=None) -> dict:
             "raster_f32", "raster_bf16", "raster_int8", "raster_episode")}
     if "paths" in parts:
         paths_part(cfg, b, dev, result)
+    if "softmax" in parts:
+        result["softmax"] = {}
+        softmax_part(cfg, b, dev, gen, args.iters, rows, result["softmax"])
+        result["softmax"].update({p: total(rows, p) for p in (
+            "softmax_f32", "softmax_bf16", "softmax_geo_float32",
+            "softmax_geo_bfloat16")})
+    if "image" in parts:
+        image_part(cfg, b, dev, gen, args.iters, rows)
+        result["image"] = {p: total(rows, p) for p in (
+            "image_f32", "image_bf16", "image_int8", "image_train",
+            "image_flat_episode")}
     print(json.dumps(result), flush=True)
     return result
 

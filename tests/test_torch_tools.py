@@ -308,6 +308,42 @@ def test_segment_turns_parts_run_alone():
                                     + ["--device", "cpu", "--parts", "nope"])
 
 
+def test_segment_turns_softmax_image_parts_on_cpu(capsys):
+    """The kernel 1 and 6a parts alone at micro size: kernel 1 at the
+    serving shape in f32 and bf16 and on each geo forward's 4 calls (the
+    bf16 forward hands the plain version bf16 operands, no widening by the
+    caller), kernel 6a in three modes and on the captured calls of one
+    agent-training run and one "flat" bf16 + int8 episode, each call giving
+    the same bits twice."""
+    from cmr_agent_tpu_torch.config import micro_config
+    cfg = micro_config()
+    out = _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
+                                      + ["--device", "cpu", "--parts",
+                                         "softmax,image"])
+    assert set(out) == {"tag", "device", "softmax", "image"}
+    soft, image = out["softmax"], out["image"]
+    assert soft["softmax_f32"]["calls"] == soft["softmax_bf16"]["calls"] == 1
+    assert soft["softmax_geo_float32"]["calls"] == 4
+    assert soft["softmax_geo_bfloat16"]["calls"] == 4
+    assert soft["geo_forward_float32_device_ms"] is None
+    for part in ("image_f32", "image_bf16", "image_int8"):
+        assert image[part]["calls"] == 1
+    assert image["image_train"]["calls"] == cfg.action_num * \
+        cfg.num_trajectory
+    assert image["image_flat_episode"]["calls"] == cfg.action_num
+    for totals in (soft, image):
+        assert all(t["same_bits"] and t["ms"] > 0.0 for t in totals.values()
+                   if isinstance(t, dict))
+    rows = [json.loads(ln) for ln in
+            capsys.readouterr().out.strip().splitlines()[:-1]]
+    geo16 = [r for r in rows if r["part"] == "softmax_geo_bfloat16"]
+    assert all(r["dtypes"][:2] == ["torch.bfloat16"] * 2
+               and "widened_by_caller" not in r for r in geo16)
+    flat = [r for r in rows if r["part"] == "image_flat_episode"]
+    assert all(r["landed_rows"] >= 0 and r["device_all_ms"] is None
+               for r in flat)
+
+
 @pytest.mark.parametrize("name", sorted(TOOL_ARGS))
 def test_tools_refuse_to_fall_back_to_cpu(name):
     """Without ``--device cpu`` a tool asks for the card; on a host without
