@@ -7,6 +7,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase segment_sums           # kernels 5 and 7
     python3 chip_smoke.py --phase knn_raster             # kernels 3 and 4
     python3 chip_smoke.py --phase softmax_image          # kernels 1 and 6a
+    python3 chip_smoke.py --phase compact_pack           # kernels 11 and 8
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -48,9 +49,11 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
 8. the coarse-to-fine path's two kernels (the shared-data segment sum of
    the cost volume's warp, with a dead hypothesis, bit-equal to a second
    launch and on the segment sum's edge cases as hypotheses too; and the
-   mask-pack compaction with counts above and below its budget, f32 and
-   bf16) at their KITTI shapes against their plain versions, with the
-   same timings;
+   mask-pack compaction bit-equal with counts below, at and above its
+   budget, empty and full masks, k > N, f32, bf16 and odd-F bf16 rows,
+   also launched into outputs pre-filled with a non-zero byte, which it
+   must overwrite) at their KITTI shapes against their plain versions,
+   with the same timings (also alone with ``--phase compact_pack``);
 9. ``IterModel`` at KITTI width, B=8, f32 (729 hypotheses in 3 chunks):
    launches, ms per forward, peak memory, a profile, and its logits and
    decoded pose against the plain-kernel twin;
@@ -81,11 +84,16 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     episode against its plain-kernel twin and, in f32, the fused geo
     outputs against the unfused model on the same weights;
 14. the uncompacted eval rasters, the fresh overlap head centred on the
-    batch's median point: the compacting raster (f32, bf16, int8) and the
-    int8 pixel-id raster on the inputs of the f32 "compact" episode's
-    busiest step, then one eval episode each under ``raster_mode``
+    batch's median point: one eval episode each under ``raster_mode``
     "compact" (f32, bf16 + int8), "flat" and "topk" (bf16 + int8) against
-    its plain twin on the same perceived state;
+    its plain twin on the same perceived state; then the compacting raster
+    (counts exact, int8 sums bit-equal, f32 / bf16 rtol 1e-5, every mode
+    bit-equal across launches) in f32, bf16 and int8 on the f32 "compact"
+    episode's busiest call (timed, ``index_add_`` the library call) and on
+    its edge cases (every row routed out, timed; one pixel; ids in reverse
+    order; N a multiple of neither 512 nor 4096; B = 1), its gradient, the
+    int8 pixel-id raster on the same call, and each call of both "compact"
+    episodes in its own mode (also alone with ``--phase compact_pack``);
 15. the factored image raster (f32, bf16) on the raster probe's rows and
     on a training episode's ids against its plain version, its backward
     against autograd of the plain version, with the same timings and
@@ -478,12 +486,11 @@ FUSION_KERNELS = ("fused_dense_chain", "fused_dense_chain_cn",
 PORT_KERNEL_NAMES = ("softmax_max_kernel", "softmax_bucket_kernel",
                      "softmax_reduce_kernel", "gather_rows_kernel",
                      "knn_kernel", "raster_prepass_kernel",
-                     "raster_band_kernel", "raster_finalise_kernel",
+                     "raster_band_kernel",
                      "segment_bucket_kernel", "segment_reduce_kernel",
                      "softmax_backward_kernel", "segment_sum_shared_kernel",
-                     "mask_count_kernel", "mask_pack_kernel",
+                     "mask_rank_kernel", "mask_pack_kernel",
                      "chain_mma_kernel", "chain_f32_kernel",
-                     "raster_compact_kernel",
                      "raster_factored_kernel")
 
 
@@ -1200,37 +1207,98 @@ def check_compose_kernels(torch, kernels, serve, kitti_config, dev):
         torch, kernels, dev, randn, randint,
         lambda: warp_segment_calls(torch, kernels, serve, kitti_config))}
 
-    # 11. the episode's compaction: overlap counts below and above the
-    #     budget, f32 and bf16 features; exact
-    pcT = randn(B, 3, N_PT)
-    feat = randn(B, N_PT, F)
-    timed_case = None
-    for frac in (0.3, 0.7):
-        mask = (torch.rand(B, N_PT, generator=gen) < frac).to(dev)
-        count = mask.sum(dim=1)
-        assert (count < RASTER_K).all() if frac < 0.5 \
-            else (count > RASTER_K).all()
-        for ft in (feat, feat.to(torch.bfloat16)):
-            gf, gp = kernels.mask_compact_pack(mask, pcT, ft, RASTER_K)
-            wf, wp = kernels.mask_compact_pack_plain(mask, pcT, ft, RASTER_K)
-            assert gf.dtype == ft.dtype
-            assert torch.equal(gf, wf) and torch.equal(gp, wp), (frac,
-                                                                 ft.dtype)
-        timed_case = mask, int(count.clamp_max(RASTER_K).sum().item())
-    mask, kept = timed_case
-    rows["mask_compact_pack"] = dict(
-        max_abs_err=0.0, library_ms=None,
-        ms=cuda_ms(lambda: kernels.mask_compact_pack(mask, pcT, feat,
-                                                     RASTER_K), 20),
-        plain_ms=cuda_ms(lambda: kernels.mask_compact_pack_plain(
-            mask, pcT, feat, RASTER_K), 5),
-        tol="exact (rows are copied); counts below and above k, f32 and bf16",
-        shape=f"mask [{B},{N_PT}], feat [{B},{N_PT},{F}] f32 -> k={RASTER_K}, "
-              f"{kept} rows kept",
-        bound=bound(B * N_PT + kept * (F * 4 + 12)
-                    + B * RASTER_K * (F * 4 + 12), 0.0))
-    print_rows({"mask_compact_pack": rows["mask_compact_pack"]})
+    rows["mask_compact_pack"] = check_pack_kernel(torch, kernels, gen,
+                                                  randn)
     return rows
+
+
+PACK_KERNEL_NAMES = ("mask_rank_kernel", "mask_pack_kernel")
+
+
+def pack_cases(torch, gen, randn):
+    """Kernel 11's cases, ``(kind, mask, pcT, feat, k)``: at the episode's
+    shape (phase 8's: ``mask [8, 40960]``, k = 20480) the counts below (30%
+    kept), above (70%) and at k, an empty and a full mask, bf16 rows below
+    and above k; at N = 4096, k = 6144 > N (f32), and bf16 rows of F = 5
+    (10 bytes: 2-byte chunks) with a uint8 mask."""
+    pcT, feat = randn(B, 3, N_PT), randn(B, N_PT, F)
+    dev = feat.device
+
+    def kept(frac, n=N_PT):
+        return (torch.rand(B, n, generator=gen) < frac).to(dev)
+    at = torch.zeros(B, N_PT, dtype=torch.bool)
+    for row in at:
+        row[torch.randperm(N_PT, generator=gen)[:RASTER_K]] = True
+    n = 4096
+    half, bf = kept(0.5, n), feat.to(torch.bfloat16)
+    return [("below_k", kept(0.3), pcT, feat, RASTER_K),
+            ("above_k", kept(0.7), pcT, feat, RASTER_K),
+            ("at_k", at.to(dev), pcT, feat, RASTER_K),
+            ("empty", torch.zeros_like(at).to(dev), pcT, feat, RASTER_K),
+            ("full", torch.ones_like(at).to(dev), pcT, feat, RASTER_K),
+            ("below_k_bf16", kept(0.3), pcT, bf, RASTER_K),
+            ("above_k_bf16", kept(0.7), pcT, bf, RASTER_K),
+            ("k_above_n", half, pcT[..., :n].contiguous(),
+             feat[:, :n].contiguous(), 6144),
+            ("odd_f_bf16", half.to(torch.uint8), pcT[..., :n].contiguous(),
+             randn(B, n, 5).to(torch.bfloat16), 2048)]
+
+
+def check_pack_kernel(torch, kernels, gen, randn):
+    """Phase 8, kernel 11: the mask-pack compaction bit-equal to its plain
+    version on every case of :func:`pack_cases`, through the wrapper and
+    again through the launch alone (``kernels._mask_pack_into``) into
+    outputs pre-filled with the byte 0xA5, which shows that the kernel
+    writes every element (``[pack_case]``); timed at 70% kept (wrapper,
+    device, host and plain times, bound). Returns the timed row."""
+    row = None
+    for kind, mask, pcT, feat, k in pack_cases(torch, gen, randn):
+        count = (mask != 0).sum(dim=1)
+        if kind.startswith("below"):
+            assert (count < k).all(), kind
+        elif kind.startswith("above") or kind == "full":
+            assert (count > k).all(), kind
+        elif kind == "at_k":
+            assert (count == k).all(), kind
+        gf, gp = kernels.mask_compact_pack(mask, pcT, feat, k)
+        wf, wp = kernels.mask_compact_pack_plain(mask, pcT, feat, k)
+        assert gf.dtype == feat.dtype and gf.shape == wf.shape, kind
+        assert torch.equal(gf, wf) and torch.equal(gp, wp), kind
+        pf, pp = torch.empty_like(wf), torch.empty_like(wp)
+        pf.view(torch.uint8).fill_(0xA5)
+        pp.view(torch.uint8).fill_(0xA5)
+        kernels._mask_pack_into(mask, pcT, feat, pf, pp)
+        assert torch.equal(pf, wf) and torch.equal(pp, wp), kind
+        kept = int(count.clamp_max(k).sum().item())
+        line("pack_case", kind=kind, shape=f"[{B},{mask.shape[1]}]",
+             dtype=str(feat.dtype).replace("torch.", ""),
+             F=feat.shape[-1], k=k, kept=kept, equal_plain=True,
+             prefilled_equal_plain=True)
+        if kind != "above_k":
+            continue
+
+        def fn():
+            return kernels.mask_compact_pack(mask, pcT, feat, k)
+        row = dict(
+            max_abs_err=0.0, library_ms=None, ms=cuda_ms(fn, 20),
+            device_ms=kernel_device_ms(fn, PACK_KERNEL_NAMES),
+            host_us=host_us(torch, fn),
+            plain_ms=cuda_ms(lambda: kernels.mask_compact_pack_plain(
+                mask, pcT, feat, k), 5),
+            tol="exact (rows are copied); counts below, at and above k, "
+                "empty and full masks, k > N, f32, bf16 and odd-F bf16 "
+                "rows; every element written (pre-filled outputs)",
+            shape=f"mask [{B},{N_PT}], feat [{B},{N_PT},{F}] f32 -> "
+                  f"k={RASTER_K}, {kept} rows kept",
+            bound=bound(B * N_PT + kept * (F * 4 + 12)
+                        + B * RASTER_K * (F * 4 + 12), 0.0))
+        line("pack_timed", kernel_ms=f"{row['ms']:.5f}",
+             device_ms=fmt_ms(row["device_ms"]),
+             host_us=f"{row['host_us']:.1f}",
+             plain_ms=f"{row['plain_ms']:.5f}",
+             bound_us=f"{row['bound'][0] * 1e3:.2f}")
+    print_rows({"mask_compact_pack": row})
+    return row
 
 
 def flagship_workload(torch, serve, kitti_config, dtype: str):
@@ -1715,6 +1783,15 @@ def int_template(entry_line: str) -> str:
     return f"<{found.group(1)}>" if found else ""
 
 
+def chunk_variant(entry_line: str) -> str:
+    """``<bytes>`` of a kernel templated on its copy chunk (``uint4``,
+    ``unsigned int``, ``unsigned short``); "" for the others."""
+    for mangled, size in (("I5uint4E", 16), ("IjE", 4), ("ItE", 2)):
+        if mangled in entry_line:
+            return f"<{size}>"
+    return ""
+
+
 def print_ptxas(build, stem: str, names, variant=chain_variant) -> None:
     """Registers, stack, shared memory and spills of the kernels of
     ``csrc/<stem>.cu`` whose entry names contain one of ``names``, from
@@ -1903,40 +1980,119 @@ def run_fused_path(torch, kernels, serve, kitti_config, dtype: str):
     return counts
 
 
+def compact_modes(torch, kernels, data, ids, label: str, modes=None,
+                  timed: bool = False):
+    """Kernel 8 against its plain version on one input in each of
+    ``modes`` (default all three, else the names of :data:`RASTER_MODES`
+    to run): counts exact, int8 sums bit-equal, f32 / bf16 sums within
+    rtol 1e-5 atol 1e-5 (f32 sums in another order), every mode the same
+    bits on a second launch. With ``timed`` each mode's wrapper, device,
+    host and plain times, its bound (the same bytes as kernel 6a's) and, in
+    f32, ``index_add_`` with a ones column as the library call. Returns
+    ``{mode: row}``; one ``[compact_mode]`` line a mode."""
+    hw = IMG_H * IMG_W
+    out = {}
+    for mode, dt in RASTER_MODES:
+        if modes is not None and mode not in modes:
+            continue
+        cdt = None if dt is None else getattr(torch, dt)
+        args = (data, ids, IMG_H, IMG_W, cdt)
+        gs, gc = kernels.segment_sum_count_image_compact(*args)
+        ws, wc = kernels.segment_sum_count_image_compact_plain(*args)
+        assert torch.equal(gc, wc), (label, mode)
+        err = (gs - ws).abs().max().item() if gs.numel() else 0.0
+        if mode == "int8":
+            assert torch.equal(gs, ws), (label, mode, err)
+        else:
+            torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-5)
+        gs2, gc2 = kernels.segment_sum_count_image_compact(*args)
+        assert torch.equal(gs2, gs) and torch.equal(gc2, gc), (label, mode)
+        r = dict(max_abs_err=err, landed=int(wc.sum()), library_ms=None)
+        del gs, gc, ws, wc, gs2, gc2
+
+        def fn():
+            return kernels.segment_sum_count_image_compact(*args)
+        if timed:
+            r.update(ms=cuda_ms(fn, 20),
+                     device_ms=kernel_device_ms(fn, RASTER_KERNEL_NAMES),
+                     host_us=host_us(torch, fn),
+                     plain_ms=cuda_ms(lambda: kernels.
+                                      segment_sum_count_image_compact_plain(
+                                          *args), 5),
+                     bound=image_bound(data, ids, r["landed"], hw, mode))
+            if mode == "f32":
+                r["library_ms"] = index_add_ms(torch, data.float(), ids, hw)
+        line("compact_mode", case=label, mode=mode, shape=repr(
+            list(data.shape)), data_dtype=str(data.dtype).replace(
+            "torch.", ""), landed=r["landed"], max_abs_err=err,
+             same_bits=True,
+             **({} if not timed else dict(
+                 kernel_ms=f"{r['ms']:.5f}",
+                 device_ms=fmt_ms(r["device_ms"]),
+                 host_us=f"{r['host_us']:.1f}",
+                 plain_ms=f"{r['plain_ms']:.5f}",
+                 library_ms=("none" if r["library_ms"] is None
+                             else f"{r['library_ms']:.5f}"),
+                 bound_us=f"{r['bound'][0] * 1e3:.2f}({r['bound'][1]})")))
+        out[mode] = r
+    return out
+
+
+def compact_cases(torch, data, ids):
+    """Kernel 8's edge cases on an episode call's ``data [B,N,F]`` f32 and
+    ``ids``: ``(kind, data, ids, timed)``: the call itself (timed);
+    every row routed out (timed: what the bands' scan of all N ids costs);
+    every row on one pixel (rows on a 1/64 grid, exact sums in any order);
+    the ids in descending order; N = 40627, a multiple of neither 512 nor
+    the band kernel's 4096-id step; B = 1."""
+    gen = torch.Generator().manual_seed(1414)
+    hw = IMG_H * IMG_W
+    routed = torch.where(torch.arange(ids.shape[1], device=ids.device) % 2
+                         == 0, -1, hw).to(torch.int32).expand_as(ids)
+    one = torch.full_like(ids, hw // 2 + 17)
+    grid = grid_rows(torch, gen, *data.shape).to(data.device)
+    n = 40627 if data.shape[1] > 40627 else data.shape[1] - 333
+    return [("episode_busiest", data, ids, True),
+            ("all_routed_out", data, routed.contiguous(), True),
+            ("one_pixel", grid, one, False),
+            ("reverse_order", data,
+             ids.sort(dim=1, descending=True).values.contiguous(), False),
+            (f"n_{n}", data[:, :n].contiguous(), ids[:, :n].contiguous(),
+             False),
+            ("batch_1", data[:1].contiguous(), ids[:1].contiguous(), False)]
+
+
 def check_compact_kernels(torch, kernels, data, ids, landed: int):
-    """Phase 14, kernels: the compacting raster in f32, bf16 and int8 and
-    the int8 pixel-id raster on an episode's uncompacted ids (``data
-    [B,N,F]`` f32, as the geo model hands it over). The times are the
-    wrappers', so in int8 they include the absmax quantisation in
-    PyTorch. Returns the summary rows."""
+    """Phase 14, kernels: the compacting raster (kernel 8, the band kernel
+    writing sums) in f32, bf16 and int8 on the f32 "compact" episode's
+    busiest call (``data [B,N,F]`` f32, as the geo model hands it over) and
+    on :func:`compact_cases`, each mode against its plain version and
+    bit-equal across launches (:func:`compact_modes`); its gradient; then
+    the int8 pixel-id raster on the same call. The times are the
+    wrappers' (in int8 the absmax prepass and the band kernel, both on the
+    card) beside the kernels' device time. Returns the summary rows."""
     b, n, f = data.shape
     hw = IMG_H * IMG_W
     rows = {}
-    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
-                     ("int8", torch.int8)):
-        gs, gc = kernels.segment_sum_count_image_compact(data, ids, IMG_H,
-                                                         IMG_W, dt)
-        ws, wc = kernels.segment_sum_count_image_compact_plain(
-            data, ids, IMG_H, IMG_W, dt)
-        assert torch.equal(gc, wc) and int(gc.sum().item()) == landed, mode
-        # f32 atomics add in another order; int8 sums are exact integers
-        # times the same scale
-        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-5)
-        # the f32 features of the rows that land (int8: of every row, for
-        # the absmax scale), every id, the sums and counts written
-        feat_rows = b * n if mode == "int8" else landed
-        rows[mode] = dict(
-            max_abs_err=(gs - ws).abs().max().item(),
-            tol="counts exact; sums rtol 1e-5 atol 1e-5", library_ms=None,
-            shape=f"[{b},{n},{f}] {mode} -> {IMG_H}x{IMG_W}, {landed} of "
-                  f"{b * n} rows land",
-            ms=cuda_ms(lambda: kernels.segment_sum_count_image_compact(
-                data, ids, IMG_H, IMG_W, dt), 20),
-            plain_ms=cuda_ms(lambda: kernels.segment_sum_count_image_compact_plain(
-                data, ids, IMG_H, IMG_W, dt), 10),
-            bound=bound(b * n * 4 + feat_rows * f * 4 + b * hw * (f + 1) * 4,
-                        (f + 1.0) * landed))
-        print_rows({f"segment_sum_count_image_compact[{mode}]": rows[mode]})
+    for kind, d, ix, timed in compact_cases(torch, data, ids):
+        modes = compact_modes(torch, kernels, d, ix, kind, timed=timed)
+        got = {r["landed"] for r in modes.values()}
+        want = {"episode_busiest": landed, "all_routed_out": 0,
+                "one_pixel": d.shape[0] * d.shape[1]}.get(kind)
+        assert want is None or got == {want}, (kind, got)
+        if kind == "episode_busiest":
+            rows = modes
+            for mode, r in modes.items():
+                r.update(tol="counts exact; int8 sums bit-equal; f32, bf16 "
+                             "sums rtol 1e-5 atol 1e-5 (f32 sums in another "
+                             "order); same bits on a second launch",
+                         shape=f"[{b},{n},{f}] {mode} -> {IMG_H}x{IMG_W}, "
+                               f"{landed} of {b * n} rows land")
+                print_rows({f"segment_sum_count_image_compact[{mode}]": r})
+        elif kind == "all_routed_out":
+            line("compact_id_scan", rows=b * n, landed=0,
+                 **{f"device_ms_{m}": fmt_ms(r["device_ms"])
+                    for m, r in modes.items()})
     check_compact_backward(torch, kernels, data, ids)
     gm, gc = kernels.segment_mean_count_image(data, ids, IMG_H, IMG_W,
                                               torch.int8)
@@ -1945,8 +2101,7 @@ def check_compact_kernels(torch, kernels, data, ids, landed: int):
     assert torch.equal(gc, wc) and int(gc.sum().item()) == landed
     torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
     # the "compact" raster's mean is the "flat" raster's in int8 too
-    torch.testing.assert_close(
-        rows_sums_mean(torch, kernels, data, ids), gm, rtol=1e-5, atol=1e-6)
+    assert torch.equal(rows_sums_mean(torch, kernels, data, ids), gm)
     int8_row = dict(
         max_abs_err=(gm - wm).abs().max().item(),
         tol="counts exact; means rtol 1e-5 atol 1e-6; equal to the compact "
@@ -1961,6 +2116,50 @@ def check_compact_kernels(torch, kernels, data, ids, landed: int):
     print_rows({"segment_mean_count_image_int8": int8_row})
     return {"segment_sum_count_image_compact": rows["f32"],
             "segment_mean_count_image_int8": int8_row}
+
+
+def hold_compact_path(torch, kernels, label: str, calls) -> None:
+    """Kernel 8 on the calls of one "compact" episode: each call in its
+    own compute dtype against its plain version and bit-equal across
+    launches (:func:`compact_modes`, ``[compact_mode]``), then all calls in
+    turn (``[compact_path_total]``: wrapper, device, host and plain
+    times)."""
+    fn, plain = (kernels.segment_sum_count_image_compact,
+                 kernels.PLAIN["segment_sum_count_image_compact"])
+    names = {v: k for k, v in RASTER_MODES}
+    for i, (args, kw) in enumerate(calls):
+        data, ids = args[:2]
+        cdt = args[4] if len(args) > 4 else kw.get("compute_dtype")
+        mode = names[None if cdt in (None, torch.float32) else
+                     str(cdt).replace("torch.", "")]
+        compact_modes(torch, kernels, data, ids, f"{label}_{i}", (mode,))
+
+    def each(f):
+        return lambda: [f(*args, **kw) for args, kw in calls]
+    line("compact_path_total", path=label, calls=len(calls),
+         kernel_ms=f"{cuda_ms(each(fn), 5):.5f}",
+         device_ms=fmt_ms(kernel_device_ms(each(fn), RASTER_KERNEL_NAMES,
+                                           iters=3)),
+         host_us=f"{host_us(torch, each(fn), iters=10):.1f}",
+         plain_ms=f"{cuda_ms(each(plain), 2):.5f}")
+
+
+def check_compact_calls(torch, kernels, calls_by_dtype) -> dict:
+    """Phase 14's kernel 8 on the calls of the f32 and the bf16 + int8
+    "compact" episodes (``{dtype: calls}``, recorded): the gates and times
+    of :func:`check_compact_kernels` on the f32 episode's busiest call,
+    then :func:`hold_compact_path` on each episode's calls. Returns the
+    summary rows."""
+    hw = IMG_H * IMG_W
+    calls = calls_by_dtype["float32"]
+    landed = [int(((a[1] >= 0) & (a[1] < hw)).sum().item()) for a, _ in calls]
+    line("raster_compact_steps", rows_landed_per_step=landed)
+    (args, _) = calls[landed.index(max(landed))]
+    rows = check_compact_kernels(torch, kernels, args[0].float().contiguous(),
+                                 args[1], max(landed))
+    for dtype, dtype_calls in calls_by_dtype.items():
+        hold_compact_path(torch, kernels, f"compact_{dtype}", dtype_calls)
+    return rows
 
 
 def check_compact_backward(torch, kernels, data, ids) -> None:
@@ -2005,32 +2204,25 @@ def run_raster_episodes(torch, kernels, serve, kitti_config):
     int8), "flat" and "topk" (bf16 + int8), the overlap head of the fresh
     weights centred on the batch's median point
     (``serve.centre_overlap_head_``: a fresh head may predict no overlap at
-    all, and then no row reaches the raster). Before the first, the
-    compacting and the int8 pixel-id rasters on the inputs of the f32
-    "compact" episode's step that lands the most rows. Each episode runs
-    on its geo state (``serve.perceive``) with the kernels and with their
-    plain versions, so that both twins see the same overlap flags. Returns
-    (summary rows, the f32 "compact" episode's launches, the bf16 "flat"
-    episode's launches)."""
-    rows, counts_by = {}, {}
-    hw = IMG_H * IMG_W
+    all, and then no row reaches the raster). The two "compact" episodes'
+    warm-ups record kernel 8's calls, which :func:`check_compact_calls`
+    holds after the episodes. Each episode runs on its geo state
+    (``serve.perceive``) with the kernels and with their plain versions, so
+    that both twins see the same overlap flags. Returns (summary rows, the
+    f32 "compact" episode's launches, the bf16 "flat" episode's
+    launches)."""
+    counts_by, compact_calls = {}, {}
     for mode, dtype in (("compact", "float32"), ("compact", "bfloat16"),
                         ("flat", "bfloat16"), ("topk", "bfloat16")):
         cfg = kitti_config(raster_mode=mode, compute_dtype=dtype)
         batch, model, agent, episode = serve.build_workload(cfg, B, seed=0)
         serve.centre_overlap_head_(model, batch)
-        if not rows:
-            calls = recorded_calls(kernels, "segment_sum_count_image_compact",
-                                   lambda: episode(batch))
-            landed = [int(((a[1] >= 0) & (a[1] < hw)).sum().item())
-                      for a, _ in calls]
-            (args, _) = calls[landed.index(max(landed))]
-            line("raster_compact_steps", rows_landed_per_step=landed)
-            rows = check_compact_kernels(torch, kernels,
-                                         args[0].float().contiguous(),
-                                         args[1], max(landed))
-            del calls, args
-        episode(batch)                                        # warm-up
+        if mode == "compact":                                 # warm-up
+            compact_calls[dtype] = recorded_calls(
+                kernels, "segment_sum_count_image_compact",
+                lambda: episode(batch))
+        else:
+            episode(batch)                                    # warm-up
         kernels.reset_launch_counts()
         final, seconds = timed(torch, lambda: episode(batch))
         counts = kernels.launch_counts()
@@ -2064,6 +2256,9 @@ def run_raster_episodes(torch, kernels, serve, kitti_config):
              final_pose_max_diff=(got[0] - want[0]).abs().max().item())
         del model, agent, episode, state
         torch.cuda.empty_cache()
+    rows = check_compact_calls(torch, kernels, compact_calls)
+    del compact_calls
+    torch.cuda.empty_cache()
     return (rows, counts_by[("compact", "float32")],
             counts_by[("flat", "bfloat16")])
 
@@ -2745,14 +2940,38 @@ def check_softmax_image(torch, kernels, serve, kitti_config, dev):
     return softmax_rows, image_rows
 
 
+def check_compact_pack(torch, kernels, serve, kitti_config, dev) -> None:
+    """``--phase compact_pack``: kernel 11's gates and times from phase 8
+    (:func:`check_pack_kernel`), then kernel 8's from phase 14 on the calls
+    of one f32 and one bf16 + int8 "compact" episode, the overlap head
+    centred (:func:`check_compact_calls`)."""
+    from cmr_agent_tpu_torch.ops import build
+    print_ptxas(build, "mask_pack", PACK_KERNEL_NAMES, chunk_variant)
+    print_ptxas(build, "raster", RASTER_KERNEL_NAMES, raster_variant)
+    gen, randn, _ = rand_factory(torch, 777, dev)
+    check_pack_kernel(torch, kernels, gen, randn)
+    torch.cuda.empty_cache()
+    calls = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = kitti_config(raster_mode="compact", compute_dtype=dtype)
+        batch, model, agent, episode = serve.build_workload(cfg, B, seed=0)
+        serve.centre_overlap_head_(model, batch)
+        calls[dtype] = recorded_calls(
+            kernels, "segment_sum_count_image_compact",
+            lambda: episode(batch))
+        del batch, model, agent, episode
+    check_compact_calls(torch, kernels, calls)
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
     twins' gradients and losses, without the timed steps), "segment_sums"
     the gates and times of kernels 5 and 7 from phases 5 and 8, "chains"
     phase 12, "knn_raster" phase 16 (kernels 3 and 4), "softmax_image"
-    phase 17 (kernels 1 and 6a). Returns the number of repeats that failed
-    their gate."""
+    phase 17 (kernels 1 and 6a), "compact_pack" kernels 11 and 8 from
+    phases 8 and 14. Returns the number of repeats that failed their
+    gate."""
     failed = 0
     if phase == "segment_sums":
         geo_calls = geo_step_segment_calls(torch, kernels, serve, kitti_config,
@@ -2769,6 +2988,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 check_knn_raster(torch, kernels, serve, kitti_config, dev)
             elif phase == "softmax_image":
                 check_softmax_image(torch, kernels, serve, kitti_config, dev)
+            elif phase == "compact_pack":
+                check_compact_pack(torch, kernels, serve, kitti_config, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -2789,14 +3010,15 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
-    geo_train|segment_sums|chains|knn_raster|softmax_image [--repeat N]``
+    geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack
+    [--repeat N]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
-                             "knn_raster", "softmax_image"),
+                             "knn_raster", "softmax_image", "compact_pack"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     opts = ap.parse_args(argv)
@@ -2922,7 +3144,7 @@ def main(argv=None) -> int:
         "mask_compact_pack": ("mask_pack.cu", 1467),
         "fused_dense_chain": ("dense_chain.cu", 1138),
         "fused_dense_chain_cn": ("dense_chain.cu", 1347),
-        "segment_sum_count_image_compact": ("raster_compact.cu", 857),
+        "segment_sum_count_image_compact": ("raster.cu", 857),
         "segment_mean_count_image_int8": ("raster.cu", 685),
         "segment_sum_image_factored": ("raster_factored.cu", 685),
     }

@@ -19,11 +19,18 @@
 //   pallas_call at :670, through segment_mean_count_image_fused with
 //   factored=False and the in-kernel ones column; int8 at :612-621): the
 //   raster of every training episode step and of the "flat" and "topk"
-//   eval episodes.
+//   eval episodes. With `sums` set it writes each pixel's sums instead of
+//   its mean, and then replaces segment_sum_count_image_compact
+//   (_sum_image_compact_kernel, pallas_call at :846): the raster of the
+//   "compact" eval episode, whose ids cover the whole uncompacted cloud
+//   (most of it routed out). The TPU kernel packs each tile's valid rows
+//   to the front in VMEM; here each band lists its landing rows itself,
+//   so no packing is needed. Its int8 mode quantises as the flat raster
+//   does (the TPU kernel's casts without quantising, :829-830).
 //
-// In both, each landing row's features and a count of one are summed into
-// its pixel, and each pixel's mean (0 where no row lands) and count are
-// written once.
+// In all, each landing row's features and a count of one are summed into
+// its pixel, and each pixel's mean (0 where no row lands) or sums, and its
+// count, are written once.
 //
 // Operand modes: f32; bf16 (each feature rounded to bf16, f32 sums); int8
 // (one absmax scale per (sample, channel) over ALL K rows, as the JAX
@@ -58,9 +65,14 @@
 //     are done. So every pixel's sum has an order fixed by the ids alone,
 //     the same bits on every launch in every mode, whatever the rows'
 //     spread (a pixel of every row is cut over the 32 warps). Then a warp
-//     per pixel writes the pixel's means and count once. Blocks of 512
-//     threads, two an SM, ran 1.5x slower than 1024 (the latency of the
-//     feature loads is what they hide).
+//     per pixel writes the pixel's means (or sums) and count once. Blocks
+//     of 512 threads, two an SM, ran 1.5x slower than 1024 (the latency of
+//     the feature loads is what they hide).
+// The compacting raster's calls (B=8, N=40960, F=64, h*w=5120) hand every
+// band block all N ids of its sample, most of them routed out: 16 bands a
+// sample read the 1.3 MB of ids 16 times, from L2. On an H100 that scan
+// takes 10-11 us of a 22-24 us f32 call (every row routed out), too little
+// to pay for a pass that lists each band's landing rows first.
 
 #include <math.h>
 #include <algorithm>
@@ -342,8 +354,8 @@ __device__ __forceinline__ void add_window(
 
 // Pass 2: one block per (band of P pixels, sample). GIVEN_IDS: every one
 // of the K rows lands on the caller's id; else the first counts[b] rows on
-// the prepass's pixel.
-template <typename T, int MODE, bool GIVEN_IDS>
+// the prepass's pixel. SUMS: each pixel's sums are written, not its mean.
+template <typename T, int MODE, bool GIVEN_IDS, bool SUMS>
 __global__ void __launch_bounds__(kBandThreads, 1)
     raster_band_kernel(const T* __restrict__ feat, const int* __restrict__ pix,
                        const int* __restrict__ counts,
@@ -447,7 +459,7 @@ __global__ void __launch_bounds__(kBandThreads, 1)
   }
 
   // a warp a pixel: its means (a sum over a count of one is the sum
-  // itself, so no division there) and its count
+  // itself, so no division there) or its sums, and its count
   for (int p = warp; p < np; p += kBandWarps) {
     const float n_p = (float)cnt[p];
     const Acc* srow = sums + (size_t)p * F;
@@ -455,7 +467,11 @@ __global__ void __launch_bounds__(kBandThreads, 1)
     for (int c = lane; c < F; c += 32) {
       float s = (float)srow[c];
       if constexpr (MODE == kInt8) s = __fmul_rn(s, sc[c]);
-      out[c] = n_p > 1.f ? __fdiv_rn(s, n_p) : s;
+      if constexpr (SUMS) {
+        out[c] = s;
+      } else {
+        out[c] = n_p > 1.f ? __fdiv_rn(s, n_p) : s;
+      }
     }
     if (lane == 0) cnt_out[(size_t)b * HW + p0 + p] = n_p;
   }
@@ -542,10 +558,13 @@ int band_pixels(int B, int F, int HW, int* P) {
 template <typename T, int MODE, bool GIVEN_IDS>
 int band(const T* feat, const int* pix, const int* counts, const float* scale,
          float* means, float* cnt_out, int B, int K, int F, int HW, int P,
-         cudaStream_t st) {
+         bool sums, cudaStream_t st) {
   const int bands = (HW + P - 1) / P;
   const size_t smem = band_layout(P, F).total;
-  auto* kernel = raster_band_kernel<T, MODE, GIVEN_IDS>;
+  auto* kernel = raster_band_kernel<T, MODE, GIVEN_IDS, false>;
+  if constexpr (GIVEN_IDS) {
+    if (sums) kernel = raster_band_kernel<T, MODE, true, true>;
+  }
   if (int err = allow_smem((const void*)kernel, smem)) return err;
   dim3 grid((unsigned int)bands, B);
   kernel<<<grid, kBandThreads, smem, st>>>(feat, pix, counts, scale, means,
@@ -557,17 +576,17 @@ int band(const T* feat, const int* pix, const int* counts, const float* scale,
 template <typename T, bool GIVEN_IDS>
 int band_of_mode(int mode, const T* feat, const int* pix, const int* counts,
                  const float* scale, float* means, float* cnt_out, int B,
-                 int K, int F, int HW, int P, cudaStream_t st) {
+                 int K, int F, int HW, int P, bool sums, cudaStream_t st) {
   switch (mode) {
     case kF32:
       return band<T, kF32, GIVEN_IDS>(feat, pix, counts, scale, means,
-                                      cnt_out, B, K, F, HW, P, st);
+                                      cnt_out, B, K, F, HW, P, sums, st);
     case kBF16:
       return band<T, kBF16, GIVEN_IDS>(feat, pix, counts, scale, means,
-                                       cnt_out, B, K, F, HW, P, st);
+                                       cnt_out, B, K, F, HW, P, sums, st);
     default:
       return band<T, kInt8, GIVEN_IDS>(feat, pix, counts, scale, means,
-                                       cnt_out, B, K, F, HW, P, st);
+                                       cnt_out, B, K, F, HW, P, sums, st);
   }
 }
 
@@ -585,13 +604,13 @@ int run_project(const float* pcT, const T* feat, int mode, const float* ab,
                                           B, K, F, h, w, st);
   if (err) return err;
   return band_of_mode<T, false>(mode, feat, pix, counts, scale, means,
-                                cnt_out, B, K, F, h * w, P, st);
+                                cnt_out, B, K, F, h * w, P, false, st);
 }
 
 template <typename T>
 int run_image(const T* feat, int mode, const int* ids, float* scale,
-              float* means, float* cnt_out, int B, int K, int F, int HW,
-              cudaStream_t st) {
+              float* out, float* cnt_out, int B, int K, int F, int HW,
+              bool sums, cudaStream_t st) {
   int P = 0;
   if (int err = band_pixels(B, F, HW, &P)) return err;
   if (mode == kInt8) {
@@ -600,8 +619,8 @@ int run_image(const T* feat, int mode, const int* ids, float* scale,
       return err;
     }
   }
-  return band_of_mode<T, true>(mode, feat, ids, nullptr, scale, means,
-                               cnt_out, B, K, F, HW, P, st);
+  return band_of_mode<T, true>(mode, feat, ids, nullptr, scale, out,
+                               cnt_out, B, K, F, HW, P, sums, st);
 }
 
 }  // namespace
@@ -633,13 +652,14 @@ CMR_EXPORT int cmr_raster_project(const float* pcT, const void* feat,
 
 // feat [B, K, F] of kind 0 = f32, 1 = bf16; mode 0 = f32, 1 = bf16, 2 =
 // int8; ids [B, K] int32 (outside [0, HW) routed out); scale [B, F] f32,
-// written (int8 only, else null); means [B, HW, F] and cnt_out [B, HW] f32,
-// each element written once. Returns a cudaError_t, or CMR_ERR_ARGUMENT /
-// CMR_ERR_SHARED_MEMORY (before any launch).
+// written (int8 only, else null); out [B, HW, F] (each pixel's means, or
+// with sums != 0 its sums) and cnt_out [B, HW] f32, each element written
+// once. Returns a cudaError_t, or CMR_ERR_ARGUMENT / CMR_ERR_SHARED_MEMORY
+// (before any launch).
 CMR_EXPORT int cmr_raster_image(const void* feat, int feat_kind, int mode,
-                                const int* ids, float* scale, float* means,
+                                const int* ids, float* scale, float* out,
                                 float* cnt_out, int B, int K, int F, int HW,
-                                void* stream) {
+                                int sums, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (feat_kind < 0 || feat_kind > 1 || mode < kF32 || mode > kInt8 ||
       K < 1 || F < 1 || HW < 1 || (mode == kInt8 && scale == nullptr)) {
@@ -647,9 +667,9 @@ CMR_EXPORT int cmr_raster_image(const void* feat, int feat_kind, int mode,
   }
   if (B == 0) return 0;
   if (feat_kind == 0) {
-    return run_image(static_cast<const float*>(feat), mode, ids, scale, means,
-                     cnt_out, B, K, F, HW, st);
+    return run_image(static_cast<const float*>(feat), mode, ids, scale, out,
+                     cnt_out, B, K, F, HW, sums != 0, st);
   }
   return run_image(static_cast<const __nv_bfloat16*>(feat), mode, ids, scale,
-                   means, cnt_out, B, K, F, HW, st);
+                   out, cnt_out, B, K, F, HW, sums != 0, st);
 }

@@ -72,7 +72,7 @@ raster_factored_kernel(const T* __restrict__ data, const int* __restrict__ ids,
         const T* row = bdata + (size_t)(base + u * 32 + src) * F;
         float* dst = acc + col * F;
         for (int c = lane; c < F; c += 32) {
-          atomicAdd(&dst[c], to_accum(row[c], 0.f));
+          atomicAdd(&dst[c], to_f32(row[c]));
         }
       }
     }

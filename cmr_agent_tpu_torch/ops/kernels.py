@@ -68,10 +68,10 @@ _SIGNATURES = {
     "cmr_segment_sum_scratch_bytes": [_I, _I, _I, _I],
     "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _P],
-    "cmr_raster_image": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmr_raster_image": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
     "cmr_segment_sum_shared": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_mask_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "cmr_raster_compact": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_dense_chain": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _F, _F, _F, _P],
     "cmr_dense_chain_cn": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -590,29 +590,41 @@ segment_softmax_attend_backward.launches = 0
 # 7. pixel-id observation raster (mean + count per pixel)
 # --------------------------------------------------------------------------
 
-def _pixel_id_raster(data, ids, h: int, w: int, compute_dtype, fn=None):
-    """The plain pixel-id rasters' common part (``fn`` None): ``(sums,
-    counts)``; or the compacting raster's C entry point ``fn`` launched on
-    the operands quantised here -> its ``(sums, counts)``. Ids outside
-    ``[0, h*w)`` are routed out."""
+def _pixel_id_raster(data, ids, h: int, w: int, compute_dtype):
+    """The plain pixel-id rasters' common part -> ``(sums, counts)``. Ids
+    outside ``[0, h*w)`` are routed out."""
     hw = h * w
     q, scale = _operands(data, compute_dtype)
-    if fn is None:
-        pix = torch.where((ids >= 0) & (ids < hw), ids,
-                          torch.full_like(ids, hw))
-        return _raster_sum_count(q, scale, pix, hw)
+    pix = torch.where((ids >= 0) & (ids < hw), ids, torch.full_like(ids, hw))
+    return _raster_sum_count(q, scale, pix, hw)
+
+
+def _image_raster(data, ids, h: int, w: int, compute_dtype, sums: bool):
+    """The pixel-id band kernel (``csrc/raster.cu``) on CUDA tensors ->
+    ``(out [B,h*w,F], counts [B,h*w])``, ``out`` each pixel's means or,
+    with ``sums``, its sums: ``data`` f32 or bf16, read as it comes; int32
+    ``ids``. The bf16 rounding and the
+    int8 quantisation (``scale`` by the absmax prepass over all K rows, as
+    :func:`quantize_int8`) happen on the card; each output element is
+    written once, the same bits on every launch. Raises on what the kernel
+    cannot take."""
     b, k, f = data.shape
     _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
     _require("ids", ids, (torch.int32,), (b, k))
-    q = q.contiguous()
-    kind = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[q.dtype]
-    acc = torch.zeros((b, hw, f + 1),
-                      dtype=torch.int32 if kind == 2 else torch.float32,
-                      device=data.device)
-    out = torch.empty((b, hw, f), device=data.device)
-    cnt = torch.empty((b, hw), device=data.device)
-    _launch(fn, _ptr(q), kind, _ptr(ids), _ptr(scale), _ptr(acc), _ptr(out),
-            _ptr(cnt), b, k, f, hw, _stream())
+    if compute_dtype not in _RASTER_MODES:
+        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
+    mode = _RASTER_MODES[compute_dtype]
+    if min(k, f, h, w) < 1:
+        raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
+                         f"F={f}, h={h}, w={w}")
+    dev = data.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = _scratch(b * f * 4, dev, stream) if mode == 2 else None
+    out = torch.empty((b, h * w, f), device=dev)
+    cnt = torch.empty((b, h * w), device=dev)
+    _launch("cmr_raster_image", _ptr(data), int(data.dtype == torch.bfloat16),
+            mode, _ptr(ids), _ptr(scale), _ptr(out), _ptr(cnt), b, k, f,
+            h * w, int(sums), ctypes.c_void_p(stream))
     return out, cnt
 
 
@@ -651,39 +663,20 @@ def segment_mean_count_image(
         data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
         compute_dtype=None, factored: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of :func:`segment_mean_count_image_plain`: ``data``
-    f32 or bf16, read as it comes; int32 ``ids``. The bf16 rounding and the
-    int8 quantisation (``scale`` by a reduction kernel over all K rows, as
-    :func:`quantize_int8`) happen on the card, in the projection-fused
-    raster's band kernel (``csrc/raster.cu``): each output element written
-    once, the same bits on every launch. ``factored=True`` goes through
-    :class:`SegmentSumImageFn` (the factored kernel, counted by
-    :func:`segment_sum_image`, with its gradient); the episodes keep the
-    default."""
+    """Kernel wrapper of :func:`segment_mean_count_image_plain`: the
+    pixel-id band kernel (:func:`_image_raster`, the projection-fused
+    raster's band kernel on the caller's ids) writing means.
+    ``factored=True`` goes through :class:`SegmentSumImageFn` (the factored
+    kernel, counted by :func:`segment_sum_image`, with its gradient); the
+    episodes keep the default."""
     if factored:
         return _factored_mean_count(SegmentSumImageFn.apply, data, ids, h, w,
                                     compute_dtype)
     if not _on_cuda(data, ids):
         return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
-    b, k, f = data.shape
-    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
-    _require("ids", ids, (torch.int32,), (b, k))
-    if compute_dtype not in _RASTER_MODES:
-        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
-    mode = _RASTER_MODES[compute_dtype]
-    if min(k, f, h, w) < 1:
-        raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
-                         f"F={f}, h={h}, w={w}")
-    dev = data.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scale = _scratch(b * f * 4, dev, stream) if mode == 2 else None
-    means = torch.empty((b, h * w, f), device=dev)
-    cnt = torch.empty((b, h * w), device=dev)
-    _launch("cmr_raster_image", _ptr(data), int(data.dtype == torch.bfloat16),
-            mode, _ptr(ids), _ptr(scale), _ptr(means), _ptr(cnt), b, k, f,
-            h * w, ctypes.c_void_p(stream))
+    out = _image_raster(data, ids, h, w, compute_dtype, sums=False)
     segment_mean_count_image.launches += 1
-    return means, cnt
+    return out
 
 
 segment_mean_count_image.launches = 0
@@ -758,27 +751,22 @@ def mask_compact_pack_plain(mask: torch.Tensor, pcT: torch.Tensor,
     return feat_out[:, :k].contiguous(), pc_out[:, :, :k].contiguous()
 
 
-def mask_compact_pack(mask: torch.Tensor, pcT: torch.Tensor,
-                      feat: torch.Tensor, k: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of :func:`mask_compact_pack_plain`: f32 ``pcT``,
-    ``feat`` of any dtype with an even row size in bytes (copied as
-    bytes). Both outputs are zeroed here; two small launches (per-tile
-    counts, then the ranked copy) count as one."""
-    if not _on_cuda(mask, pcT, feat):
-        return mask_compact_pack_plain(mask, pcT, feat, k)
+def _mask_pack_into(mask: torch.Tensor, pcT: torch.Tensor,
+                    feat: torch.Tensor, feat_out: torch.Tensor,
+                    pc_out: torch.Tensor) -> None:
+    """Launches the mask-pack kernel (``csrc/mask_pack.cu``) into
+    ``feat_out [B,k,F]`` and ``pc_out [B,3,k]``, every element of which it
+    writes; raises on what the kernel cannot take. ``mask`` bool or uint8,
+    contiguous."""
     b, n = mask.shape
-    f = feat.shape[-1]
-    k = int(k)
+    k, f = feat_out.shape[1], feat.shape[-1]
+    _require("mask", mask, (torch.bool, torch.uint8), (b, n))
     _require("pcT", pcT, (torch.float32,), (b, 3, n))
     _require("feat", feat, (feat.dtype,), (b, n, f))
+    _require("feat_out", feat_out, (feat.dtype,), (b, k, f))
+    _require("pc_out", pc_out, (torch.float32,), (b, 3, k))
     if k < 1:
         raise ValueError(f"k must be positive, got {k}")
-    if mask.dtype not in (torch.bool, torch.uint8):
-        mask = mask != 0
-    mask = mask.contiguous()
-    feat_out = torch.zeros((b, k, f), dtype=feat.dtype, device=feat.device)
-    pc_out = torch.zeros((b, 3, k), device=feat.device)
     row_bytes = f * feat.element_size()
     chunk = next((c for c in (16, 4, 2)
                   if row_bytes % c == 0 and feat.data_ptr() % c == 0
@@ -786,11 +774,32 @@ def mask_compact_pack(mask: torch.Tensor, pcT: torch.Tensor,
     if chunk is None:
         raise ValueError(f"feature rows of {row_bytes} bytes cannot be "
                          "copied in 2-byte chunks")
-    tile_counts = torch.empty((b, (n + 255) // 256), dtype=torch.int32,
-                              device=feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    scratch = _scratch((b * k + b) * 4, feat.device, stream)
     _launch("cmr_mask_pack", _ptr(mask), _ptr(pcT), _ptr(feat),
-            _ptr(tile_counts), _ptr(feat_out), _ptr(pc_out), b, n, k,
-            row_bytes, chunk, _stream())
+            _ptr(scratch), _ptr(feat_out), _ptr(pc_out), b, n, k, row_bytes,
+            chunk, ctypes.c_void_p(stream))
+
+
+def mask_compact_pack(mask: torch.Tensor, pcT: torch.Tensor,
+                      feat: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of :func:`mask_compact_pack_plain`: f32 ``pcT``,
+    ``feat`` of any dtype with an even row size in bytes (copied as
+    bytes). The outputs come from ``torch.empty``: one launch ranks each
+    sample's kept rows, the next writes every slot once, kept rows and
+    zeros (:func:`_mask_pack_into`); the two count as one."""
+    if not _on_cuda(mask, pcT, feat):
+        return mask_compact_pack_plain(mask, pcT, feat, k)
+    b, n = mask.shape
+    k = int(k)
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    mask = mask.contiguous()
+    feat_out = torch.empty((b, k, feat.shape[-1]), dtype=feat.dtype,
+                           device=feat.device)
+    pc_out = torch.empty((b, 3, k), device=feat.device)
+    _mask_pack_into(mask, pcT, feat, feat_out, pc_out)
     mask_compact_pack.launches += 1
     return feat_out, pc_out
 
@@ -807,7 +816,7 @@ def segment_sum_count_image_compact_plain(
         compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pixel-id raster -> ``(sums [B,h*w,F], counts [B,h*w])`` f32 over
     every row whose id lies in ``[0, h*w)``, none dropped. ``data [B,N,F]``
-    in any order (the kernel packs each tile's valid rows itself); ``ids
+    in any order (the whole, uncompacted cloud); ``ids
     [B,N]``. ``compute_dtype`` None/f32, bf16 (rows rounded once, f32 sums)
     or int8 (:func:`quantize_int8` over all N rows, exact integer sums,
     then scaled), so that ``sums / max(counts, 1)`` is the "flat" raster's
@@ -820,14 +829,14 @@ def segment_sum_count_image_compact(
         data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
         compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper of :func:`segment_sum_count_image_compact_plain`:
-    f32 or bf16 ``data``, int32 ``ids``. One block per 512-row tile packs
-    the tile's valid rows (warp ballots) and adds them with atomics; a
-    tile without a valid id returns at once."""
+    the pixel-id band kernel writing sums (:func:`_image_raster`), f32 or
+    bf16 ``data`` read as it comes, int32 ``ids``; in int8 the absmax
+    prepass first. Each band lists the rows landing in it from all N ids,
+    so no tile packing is needed."""
     if not _on_cuda(data, ids):
         return segment_sum_count_image_compact_plain(data, ids, h, w,
                                                      compute_dtype)
-    out = _pixel_id_raster(data, ids, h, w, compute_dtype,
-                           "cmr_raster_compact")
+    out = _image_raster(data, ids, h, w, compute_dtype, sums=True)
     segment_sum_count_image_compact.launches += 1
     return out
 

@@ -10,8 +10,9 @@ The cases (the JAX package's ``tools/raster_probe.py`` matrix):
   fact    ``segment_mean_count_image(factored=True)`` — the factored
           raster (kernel 6b: one block per image row, sums in shared
           memory) of the rows with a ones column [f32 | bf16];
-  comp    ``kernels.segment_sum_count_image_compact`` — in-kernel
-          valid-first packing of each tile (kernel 8) [f32 | bf16]; measure
+  comp    ``kernels.segment_sum_count_image_compact`` — the compacting
+          raster (kernel 8: the band kernel writing sums, each band
+          listing its landing rows from all ids) [f32 | bf16]; measure
           with ``--scattered`` for the per-step pose-dependent validity a
           global top-K cannot compact.
 

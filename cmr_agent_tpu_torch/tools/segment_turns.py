@@ -1,8 +1,9 @@
 """The two segment sums (kernels 5 and 7), the exact knn (kernel 3), the
-projection-fused raster (kernel 4), the segment softmax-attend (kernel 1)
-and the pixel-id raster (kernel 6a) timed alone, at the shapes their
-checks use and on the calls their paths make, one tree of the port per
-process, so that two trees can be compared in turns on one card.
+projection-fused raster (kernel 4), the segment softmax-attend (kernel 1),
+the pixel-id raster (kernel 6a), the compacting raster (kernel 8) and the
+mask-pack compaction (kernel 11) timed alone, at the shapes their checks
+use and on the calls their paths make, one tree of the port per process,
+so that two trees can be compared in turns on one card.
 
   uniform  kernel 5 at the geo model's three shapes (points -> nodes, the
            knn neighbourhoods -> nodes, nodes -> proxies; F = embed_dim)
@@ -36,15 +37,23 @@ process, so that two trees can be compared in turns on one card.
            the valid prefix outside the frame) in f32, bf16 and int8, on
            the calls of one agent-training run's rollouts and on the 10
            calls of one "flat" bf16 + int8 episode (the overlap head
-           centred).
+           centred);
+  compact  kernel 8 in f32, bf16 and int8 on the busiest call of one f32
+           "compact" episode (the overlap head centred; f32 rows), the same
+           call with every row routed out (what scanning the ids costs),
+           then on the 10 calls of that episode and of one bf16 + int8
+           "compact" episode, with each episode's whole device time;
+  pack     kernel 11 at the "pack" episode's shape (``mask [B, num_pt]``,
+           70% kept, f32 features, k = num_pt / 2).
 
 A row holds the wrapper's ms (CUDA events around repeated calls), the
 device ms of every kernel whose name contains "segment" (``torch.profiler``,
 by name), whether two launches gave the same bits, how the ids spread
 (rows landing, most rows on one segment) and, for kernel 5, the ms of one
 ``scatter_add_`` into a zeroed output with the index prepared. A knn,
-raster, softmax or image row holds the wrapper's ms, the device ms by name
-of the kernels whose names contain "knn", "raster" or "softmax", the
+raster, softmax, image, compact or pack row holds the wrapper's ms, the
+device ms by name of the kernels whose names contain "knn", "raster",
+"softmax" or "mask", the
 device ms of every kernel the call ran (``device_all_ms``: PyTorch's
 passes around a kernel, its fills and casts, included; the name filter
 misses kernels of older trees named otherwise, such as an older kernel
@@ -54,7 +63,8 @@ that tree's ``cmr_agent_tpu_torch/tools/`` and run it from that tree's
 root::
 
     python -m cmr_agent_tpu_torch.tools.segment_turns [--tag NAME]
-        [--parts uniform,geo,request,knn,raster,paths,softmax,image]
+        [--parts uniform,geo,request,knn,raster,paths,softmax,image,
+                 compact,pack]
 
 Prints one JSON line per row and, last, one with the totals per part;
 diagnostics on stderr. With ``--device cpu --config micro`` a rehearsal at
@@ -210,7 +220,9 @@ def call_row(part: str, name: str, key: str, args, kw, dev,
         out["widened_by_caller"] = True
     if name == "segment_mean_count_image_project":
         out["valid_rows"] = int(args[3].sum())
-    if name.startswith("segment_mean_count_image"):
+    if name in ("segment_mean_count_image_project",
+                "segment_mean_count_image",
+                "segment_sum_count_image_compact"):
         out["landed_rows"] = int(first[1].sum())
     del first
     out["ms"] = wall_ms(call, iters, dev)
@@ -393,6 +405,62 @@ def image_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
                                  args, kw, dev, max(2, iters // 4)))
 
 
+def compact_episode(cfg, b: int, dev, dtype: str):
+    """One "compact" serving episode in ``dtype`` (seed 0, the overlap head
+    centred) -> ``(kernel 8's calls, captured; the episode's whole device
+    ms, every kernel summed, None on the CPU)``."""
+    ep_cfg = dataclasses.replace(cfg, raster_mode="compact",
+                                 compute_dtype=dtype)
+    batch, model, agent, _ = serve.build_workload(ep_cfg, b, dev, seed=0)
+    serve.centre_overlap_head_(model, batch)
+
+    def episode():
+        return serve.serve_episode(model, agent, ep_cfg, batch)
+    calls = capture_calls("segment_sum_count_image_compact", episode)
+    every = device_ms_by_name(episode, dev, 2, key="")
+    return calls, None if every is None else sum(every.values())
+
+
+def compact_part(cfg, b: int, dev, iters: int, rows: list,
+                 result: dict) -> None:
+    """Kernel 8 in three modes on the busiest call of one f32 "compact"
+    episode and with that call's rows all routed out, then on the calls of
+    that episode and of one bf16 + int8 "compact" episode."""
+    by_dtype = {dtype: compact_episode(cfg, b, dev, dtype)
+                for dtype in ("float32", "bfloat16")}
+    calls = by_dtype["float32"][0]
+    hw = cfg.image_h * cfg.image_w
+    landed = [int(((a[1] >= 0) & (a[1] < hw)).sum()) for a, _ in calls]
+    args, _ = calls[landed.index(max(landed))]
+    data, ids = args[0].float().contiguous(), args[1]
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        rows.append(call_row(f"compact_{mode}",
+                             "segment_sum_count_image_compact", "raster",
+                             (data, ids, *args[2:4], dt), {}, dev, iters))
+    rows.append(call_row("compact_routed_out",
+                         "segment_sum_count_image_compact", "raster",
+                         (data, torch.full_like(ids, hw), *args[2:4], None),
+                         {}, dev, iters))
+    for dtype, (ep_calls, episode_ms) in by_dtype.items():
+        for a, kw in ep_calls:
+            rows.append(call_row(f"compact_episode_{dtype}",
+                                 "segment_sum_count_image_compact", "raster",
+                                 a, kw, dev, max(2, iters // 4)))
+        result[f"episode_{dtype}_device_ms"] = episode_ms
+
+
+def pack_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
+    """Kernel 11 at the "pack" episode's shape: 70% of ``num_pt`` rows
+    kept, f32 features, k = ``num_pt`` / 2."""
+    n, f = cfg.num_pt, cfg.embed_dim
+    mask = (torch.rand(b, n, generator=gen) < 0.7).to(dev)
+    pcT = torch.randn(b, 3, n, generator=gen).to(dev)
+    feat = torch.randn(b, n, f, generator=gen).to(dev)
+    rows.append(call_row("pack", "mask_compact_pack", "mask",
+                         (mask, pcT, feat, n // 2), {}, dev, iters))
+
+
 def paths_part(cfg, b: int, dev, result: dict) -> None:
     """Device ms of one bf16 + int8 episode and one bf16 + int8 composed
     request, every kernel summed (None on the CPU)."""
@@ -430,7 +498,7 @@ def total(rows, part: str) -> dict:
 
 
 PARTS = ("uniform", "geo", "request", "knn", "raster", "paths", "softmax",
-         "image")
+         "image", "compact", "pack")
 
 
 def main(argv=None) -> dict:
@@ -551,6 +619,16 @@ def main(argv=None) -> dict:
         result["image"] = {p: total(rows, p) for p in (
             "image_f32", "image_bf16", "image_int8", "image_train",
             "image_flat_episode")}
+    if "compact" in parts:
+        result["compact"] = {}
+        compact_part(cfg, b, dev, args.iters, rows, result["compact"])
+        result["compact"].update({p: total(rows, p) for p in (
+            "compact_f32", "compact_bf16", "compact_int8",
+            "compact_routed_out", "compact_episode_float32",
+            "compact_episode_bfloat16")})
+    if "pack" in parts:
+        pack_part(cfg, b, dev, gen, args.iters, rows)
+        result["pack"] = total(rows, "pack")
     print(json.dumps(result), flush=True)
     return result
 

@@ -344,6 +344,36 @@ def test_segment_turns_softmax_image_parts_on_cpu(capsys):
                for r in flat)
 
 
+def test_segment_turns_compact_pack_parts_on_cpu(capsys):
+    """The kernel 8 and 11 parts alone at micro size: kernel 8 in three
+    modes and with every row routed out on the busiest call of an f32
+    "compact" episode, then on the captured calls of that episode and of a
+    bf16 + int8 one; kernel 11 once; each call giving the same bits
+    twice."""
+    from cmr_agent_tpu_torch.config import micro_config
+    cfg = micro_config()
+    out = _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
+                                      + ["--device", "cpu", "--parts",
+                                         "compact,pack"])
+    assert set(out) == {"tag", "device", "compact", "pack"}
+    comp = out["compact"]
+    for part in ("compact_f32", "compact_bf16", "compact_int8",
+                 "compact_routed_out"):
+        assert comp[part]["calls"] == 1
+    for dtype in ("float32", "bfloat16"):
+        assert comp[f"compact_episode_{dtype}"]["calls"] == cfg.action_num
+        assert comp[f"episode_{dtype}_device_ms"] is None
+    assert out["pack"]["calls"] == 1
+    for t in list(comp.values()) + [out["pack"]]:
+        assert not isinstance(t, dict) or (t["same_bits"] and t["ms"] > 0.0)
+    rows = [json.loads(ln) for ln in
+            capsys.readouterr().out.strip().splitlines()[:-1]]
+    routed = [r for r in rows if r["part"] == "compact_routed_out"]
+    assert routed[0]["landed_rows"] == 0
+    assert rows[-1]["part"] == "pack" and rows[-1]["shape"][0] == [
+        2, cfg.num_pt]
+
+
 @pytest.mark.parametrize("name", sorted(TOOL_ARGS))
 def test_tools_refuse_to_fall_back_to_cpu(name):
     """Without ``--device cpu`` a tool asks for the card; on a host without
