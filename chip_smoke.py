@@ -8,6 +8,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase knn_raster             # kernels 3 and 4
     python3 chip_smoke.py --phase softmax_image          # kernels 1 and 6a
     python3 chip_smoke.py --phase compact_pack           # kernels 11 and 8
+    python3 chip_smoke.py --phase factored               # kernel 6b
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -94,16 +95,23 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     order; N a multiple of neither 512 nor 4096; B = 1), its gradient, the
     int8 pixel-id raster on the same call, and each call of both "compact"
     episodes in its own mode (also alone with ``--phase compact_pack``);
-15. the factored image raster (f32, bf16) on the raster probe's rows and
-    on a training episode's ids against its plain version, its backward
-    against autograd of the plain version, with the same timings and
-    ``index_add_`` as the library call; then the measuring tools through
-    their ``main``: ``tools.raster_probe`` (every row in the frame, a
-    quarter valid-first, a quarter scattered; the factored kernel's
-    launches are counted over these three runs), ``tools.episode_trace``
-    (bf16, 3 episodes) and ``tools.train_probe`` (10 steps per variant),
-    each JSON on a ``[raster_probe]``, ``[episode_trace]`` or
-    ``[train_probe]`` line;
+15. the factored image raster (kernel 6b: the pixel-id band kernel
+    writing sums; also alone, with the three raster probes, with ``--phase
+    factored``) in f32 and bf16 on the raster probe's rows and on a
+    training episode's ids, with the count column appended (F + 1) and
+    without it, against its plain version (counts exact, sums rtol 1e-5
+    atol 1e-5, the same bits on a second launch), its backward against
+    autograd of the plain version, with the same timings and
+    ``index_add_`` as the library call; the factored mean bit-equal to the
+    flat mean on the same ids and against its plain ones-column version
+    (counts exact, means rtol 1e-5 atol 1e-5; ``[factored_mean]``); then
+    the measuring
+    tools through their ``main``: ``tools.raster_probe`` (every row in the
+    frame, a quarter valid-first, a quarter scattered; the factored
+    kernel's launches are counted over these three runs and must be 318),
+    ``tools.episode_trace`` (bf16, 3 episodes) and ``tools.train_probe``
+    (10 steps per variant), each JSON on a ``[raster_probe]``,
+    ``[episode_trace]`` or ``[train_probe]`` line;
 16. the exact knn and the projection-fused raster (kernels 3 and 4, also
     alone with ``--phase knn_raster``): the knn equal to its plain version
     in full order and bit-equal across launches at the serving shape, k 1,
@@ -367,6 +375,8 @@ def print_rows(rows) -> None:
     for name, r in rows.items():
         device = {k: fmt_ms(r[k]) for k in ("device_ms", "host_us")
                   if k in r}
+        if "same_bits" in r:
+            device["same_bits"] = r["same_bits"]
         line("kernel", name=name, shape=repr(r["shape"]), tol=repr(r["tol"]),
              max_abs_err=r["max_abs_err"], kernel_ms=f"{r['ms']:.5f}",
              **device, plain_ms=f"{r['plain_ms']:.5f}",
@@ -490,8 +500,7 @@ PORT_KERNEL_NAMES = ("softmax_max_kernel", "softmax_bucket_kernel",
                      "segment_bucket_kernel", "segment_reduce_kernel",
                      "softmax_backward_kernel", "segment_sum_shared_kernel",
                      "mask_rank_kernel", "mask_pack_kernel",
-                     "chain_mma_kernel", "chain_f32_kernel",
-                     "raster_factored_kernel")
+                     "chain_mma_kernel", "chain_f32_kernel")
 
 
 def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
@@ -2264,13 +2273,19 @@ def run_raster_episodes(torch, kernels, serve, kitti_config):
 
 
 def check_factored_kernel(torch, kernels, dev):
-    """Phase 15, kernel: the factored raster (6b) in f32 and bf16, on
-    tools/raster_probe.py's rows (every row in the frame) and on a training
-    episode's ids (valid-first, a third of the prefix outside the frame, a
-    tail routed out by ``h*w``, above it and by -1), each with the count
-    column appended, against its plain version; its backward (the row
-    gather) against autograd of the plain version. Returns the summary row
-    (f32, raster_probe's rows)."""
+    """Phase 15, kernel: the factored raster (6b: the pixel-id band kernel
+    writing sums) in f32 and bf16, on tools/raster_probe.py's rows (every
+    row in the frame) and on a training episode's ids (valid-first, a third
+    of the prefix outside the frame, a tail routed out by ``h*w``, above it
+    and by -1), with the count column appended (F + 1, the summary row,
+    comparable with the earlier kernel's) and without it (F), against its
+    plain version, the same bits on a second launch; its backward (the row
+    gather) against autograd of the plain version. Then the factored mean
+    (``segment_mean_count_image(factored=True)``: the same band kernel
+    writing means) bit-equal to the flat mean on the same rows and ids and
+    against the plain ones-column form (counts exact, means rtol 1e-5 atol
+    1e-5), its gradient against autograd of that form. Returns
+    the summary row (f32, raster_probe's rows, F + 1)."""
     from cmr_agent_tpu_torch.tools import raster_probe
     gen, randn, _ = rand_factory(torch, 5150, dev)
     hw = IMG_H * IMG_W
@@ -2292,68 +2307,136 @@ def check_factored_kernel(torch, kernels, dev):
     rows = {}
     for layout, ids in (("probe", probe_ids), ("train", train_ids)):
         landed = int(((ids >= 0) & (ids < hw)).sum().item())
+        for width, rows_in in (("", aug), (f",F{F}", feat)):
+            f = rows_in.shape[-1]
+            g_f = g[..., :f].contiguous()
+            for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+                data = rows_in if dt is None else rows_in.to(dt)
+                args = (data, ids, IMG_H, IMG_W, dt)
+                got = kernels.segment_sum_image(*args)
+                same_bits = torch.equal(kernels.segment_sum_image(*args),
+                                        got)
+                assert same_bits, (layout, width, mode)
+                want = kernels.segment_sum_image_plain(*args)
+                if f == F + 1:
+                    assert torch.equal(got[..., -1], want[..., -1]), (
+                        layout, mode)
+                    assert int(got[..., -1].sum().item()) == landed, (
+                        layout, mode)
+                # the plain version's scatter_add_ atomics add in an order
+                # that changes between runs; the kernel's order is fixed
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                d = data.detach().clone().requires_grad_()
+                d_p = data.detach().clone().requires_grad_()
+                kernels.SegmentSumImageFn.apply(d, ids, IMG_H, IMG_W,
+                                                dt).backward(g_f)
+                kernels.segment_sum_image_plain(d_p, ids, IMG_H, IMG_W,
+                                                dt).backward(g_f)
+                assert torch.equal(d.grad, d_p.grad), (layout, width, mode)
+                library_ms = (index_add_ms(torch, feat, ids, hw)
+                              if dt is None and f == F + 1 else None)
+                elt = data.element_size()
+
+                def fn():
+                    return kernels.segment_sum_image(*args)
+                r = dict(
+                    max_abs_err=(got - want).abs().max().item(),
+                    same_bits=same_bits,
+                    tol="counts exact; sums rtol 1e-5 atol 1e-5 (the plain "
+                        "version's scatter_add_ atomics reorder its sums); "
+                        "VJP vs autograd exact",
+                    shape=f"[{B},{RASTER_K},{f}] {mode} -> {IMG_H}x{IMG_W}, "
+                          f"{landed} rows land",
+                    ms=cuda_ms(fn, 50),
+                    device_ms=kernel_device_ms(fn, RASTER_KERNEL_NAMES),
+                    host_us=host_us(torch, fn),
+                    plain_ms=cuda_ms(lambda: kernels.segment_sum_image_plain(
+                        *args), 10),
+                    library_ms=library_ms,
+                    bound=bound(B * RASTER_K * 4 + landed * f * elt
+                                + B * hw * f * 4, f * 1.0 * landed))
+                del got, want, d, d_p
+                print_rows({f"segment_sum_image_factored[{layout},{mode}"
+                            f"{width}]": r})
+                rows.setdefault("segment_sum_image_factored", r)
         for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
-            data = aug if dt is None else aug.to(dt)
-            got = kernels.segment_sum_image(data, ids, IMG_H, IMG_W, dt)
-            want = kernels.segment_sum_image_plain(data, ids, IMG_H, IMG_W, dt)
-            assert torch.equal(got[..., -1], want[..., -1]), (layout, mode)
-            assert int(got[..., -1].sum().item()) == landed, (layout, mode)
-            # f32 atomics add in another order
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            # bf16 rows, as above: the plain version's autograd rounds the
+            # gradient where it casts f32 rows to bf16
+            data = feat if dt is None else feat.to(dt)
+            args = (data, ids, IMG_H, IMG_W, dt)
+
+            def fact():
+                return kernels.segment_mean_count_image(*args, factored=True)
+
+            def flat():
+                return kernels.segment_mean_count_image(*args)
+            (fact_m, fact_c), (flat_m, flat_c) = fact(), flat()
+            equal_flat = (torch.equal(fact_m, flat_m)
+                          and torch.equal(fact_c, flat_c))
+            assert equal_flat, (layout, mode)
+            plain_m, plain_c = kernels.segment_mean_count_image_plain(
+                *args, factored=True)
+            assert torch.equal(fact_c, plain_c), (layout, mode)
+            # the plain ones-column sums' scatter_add_ atomics reorder them
+            torch.testing.assert_close(fact_m, plain_m, rtol=1e-5, atol=1e-5)
+            mean_err = (fact_m - plain_m).abs().max().item()
             d = data.detach().clone().requires_grad_()
             d_p = data.detach().clone().requires_grad_()
-            kernels.SegmentSumImageFn.apply(d, ids, IMG_H, IMG_W,
-                                            dt).backward(g)
-            kernels.segment_sum_image_plain(d_p, ids, IMG_H, IMG_W,
-                                            dt).backward(g)
+            g_f = g[..., :F].contiguous()
+            kernels.segment_mean_count_image(d, *args[1:], factored=True)[
+                0].backward(g_f)
+            kernels.segment_mean_count_image_plain(d_p, *args[1:],
+                                                   factored=True)[
+                0].backward(g_f)
             assert torch.equal(d.grad, d_p.grad), (layout, mode)
-            library_ms = (index_add_ms(torch, feat, ids, hw) if dt is None
-                          else None)
-            elt = data.element_size()
-            r = dict(
-                max_abs_err=(got - want).abs().max().item(),
-                tol="counts exact; sums rtol 1e-5 atol 1e-5 (f32 atomics "
-                    "reorder sums); VJP vs autograd exact",
-                shape=f"[{B},{RASTER_K},{F + 1}] {mode} -> {IMG_H}x{IMG_W}, "
-                      f"{landed} rows land",
-                ms=cuda_ms(lambda: kernels.segment_sum_image(
-                    data, ids, IMG_H, IMG_W, dt), 50),
-                plain_ms=cuda_ms(lambda: kernels.segment_sum_image_plain(
-                    data, ids, IMG_H, IMG_W, dt), 10),
-                library_ms=library_ms,
-                bound=bound(B * RASTER_K * 4 + landed * (F + 1) * elt
-                            + B * hw * (F + 1) * 4, (F + 1.0) * landed))
-            print_rows({f"segment_sum_image_factored[{layout},{mode}]": r})
-            rows.setdefault("segment_sum_image_factored", r)
+            line("factored_mean", layout=layout, mode=mode,
+                 landed=int(fact_c.sum().item()), equal_flat=equal_flat,
+                 max_abs_err_vs_plain=mean_err, vjp_exact=True, fact_ms=f"{cuda_ms(fact, 50):.5f}",
+                 flat_ms=f"{cuda_ms(flat, 50):.5f}")
+            del fact_m, fact_c, flat_m, flat_c, plain_m, plain_c, d, d_p
     return rows["segment_sum_image_factored"]
 
 
-def run_tools(torch, kernels):
-    """Phase 15, tools: ``raster_probe`` with every row in the frame, with a
-    quarter valid-first and with a quarter scattered, then
-    ``episode_trace`` (bf16, 3 episodes) and ``train_probe`` (10 steps per
-    variant), each through its ``main`` with its JSON on a line of its own.
-    Returns the factored kernel's launches over the three probes."""
-    import io
-    from cmr_agent_tpu_torch.tools import (episode_trace, raster_probe,
-                                           train_probe)
+# 3 raster probes x 2 "fact" cases (f32, bf16) x (3 warm-up + 50 timed) calls
+PROBE_FACTORED_LAUNCHES = 3 * 2 * (3 + 50)
 
-    def run(tag, main, argv):
-        with contextlib.redirect_stdout(io.StringIO()):
-            out = main(argv)
-        print(f"[{tag}] {json.dumps(out)}", flush=True)
-        return out
 
+def run_raster_probes(torch, kernels, run):
+    """``raster_probe`` with every row in the frame, with a quarter
+    valid-first and with a quarter scattered, each through ``run``.
+    Returns the factored kernel's launches over the three, which must be
+    :data:`PROBE_FACTORED_LAUNCHES`."""
+    from cmr_agent_tpu_torch.tools import raster_probe
     kernels.reset_launch_counts()
     for argv in ([], ["--valid-frac", "0.25"],
                  ["--valid-frac", "0.25", "--scattered"]):
         out = run("raster_probe", raster_probe.main, argv)
         assert all(v > 0 for k, v in out.items() if k.endswith("_ms")), out
     launches = kernels.segment_sum_image.launches
-    out = run("episode_trace", episode_trace.main,
-              ["--dtype", "bfloat16", "--iters", "3", "--top", "12"])
+    assert launches == PROBE_FACTORED_LAUNCHES, launches
+    return launches
+
+
+def run_tool(tag, main, argv):
+    """A tool's ``main`` with its stdout captured; its JSON on a line."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = main(argv)
+    print(f"[{tag}] {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_tools(torch, kernels):
+    """Phase 15, tools: :func:`run_raster_probes`, then ``episode_trace``
+    (bf16, 3 episodes) and ``train_probe`` (10 steps per variant), each
+    through its ``main`` with its JSON on a line of its own. Returns the
+    factored kernel's launches over the three probes."""
+    from cmr_agent_tpu_torch.tools import episode_trace, train_probe
+    launches = run_raster_probes(torch, kernels, run_tool)
+    out = run_tool("episode_trace", episode_trace.main,
+                   ["--dtype", "bfloat16", "--iters", "3", "--top", "12"])
     assert out["total_device_ms_per_iter"] > 0 and out["top"], out
-    out = run("train_probe", train_probe.main, ["--steps", "10"])
+    out = run_tool("train_probe", train_probe.main, ["--steps", "10"])
     assert all(v > 0 for v in out["ms_per_step"].values()), out
     return launches
 
@@ -2970,7 +3053,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     the gates and times of kernels 5 and 7 from phases 5 and 8, "chains"
     phase 12, "knn_raster" phase 16 (kernels 3 and 4), "softmax_image"
     phase 17 (kernels 1 and 6a), "compact_pack" kernels 11 and 8 from
-    phases 8 and 14. Returns the number of repeats that failed their
+    phases 8 and 14, "factored" kernel 6b and the raster probes from phase
+    15. Returns the number of repeats that failed their
     gate."""
     failed = 0
     if phase == "segment_sums":
@@ -2990,6 +3074,9 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 check_softmax_image(torch, kernels, serve, kitti_config, dev)
             elif phase == "compact_pack":
                 check_compact_pack(torch, kernels, serve, kitti_config, dev)
+            elif phase == "factored":
+                check_factored_kernel(torch, kernels, dev)
+                run_raster_probes(torch, kernels, run_tool)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -3010,15 +3097,16 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
-    geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack
-    [--repeat N]``
+    geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
+    factored [--repeat N]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
-                             "knn_raster", "softmax_image", "compact_pack"),
+                             "knn_raster", "softmax_image", "compact_pack",
+                             "factored"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     opts = ap.parse_args(argv)
@@ -3146,7 +3234,7 @@ def main(argv=None) -> int:
         "fused_dense_chain_cn": ("dense_chain.cu", 1347),
         "segment_sum_count_image_compact": ("raster.cu", 857),
         "segment_mean_count_image_int8": ("raster.cu", 685),
-        "segment_sum_image_factored": ("raster_factored.cu", 685),
+        "segment_sum_image_factored": ("raster.cu", 685),
     }
     summary = {"kernels": [
         {"name": name, "route": "cuda",

@@ -32,8 +32,8 @@ static inline unsigned int cmr_blocks(long long total, int threads) {
 
 // ---------------------------------------------------------------------------
 // Operands read as given (f32 or bf16) and widened to f32 in registers,
-// shared by the rasters (raster.cu, raster_factored.cu) and the segment
-// softmax (segment_softmax.cu). Widening bf16 is exact.
+// shared by the rasters (raster.cu) and the segment softmax
+// (segment_softmax.cu). Widening bf16 is exact.
 // ---------------------------------------------------------------------------
 
 namespace {

@@ -26,7 +26,14 @@
 //   (most of it routed out). The TPU kernel packs each tile's valid rows
 //   to the front in VMEM; here each band lists its landing rows itself,
 //   so no packing is needed. Its int8 mode quantises as the flat raster
-//   does (the TPU kernel's casts without quantising, :829-830).
+//   does (the TPU kernel's casts without quantising, :829-830). The sums
+//   form also replaces segment_sum_image_fused on its factored path
+//   (_sum_image_factored_kernel, pallas_call at :648; f32 and bf16, the
+//   caller refusing int8 and w > 128 as the JAX package does): the TPU
+//   kernel factors a tile's [T, h*w] pixel one-hot into a 128-lane column
+//   one-hot and a gate per image row for its vector unit, a choice this
+//   card does not need; the factored mean is the sums over the counts
+//   this kernel writes, so no ones column is appended.
 //
 // In all, each landing row's features and a count of one are summed into
 // its pixel, and each pixel's mean (0 where no row lands) or sums, and its

@@ -28,7 +28,8 @@ wrapper                                   replaces (cmr_agent_tpu/ops/
 :func:`fused_dense_chain`                 ``fused_dense_chain``
 :func:`fused_dense_chain_cn`              ``fused_dense_chain_cn``
 :func:`segment_sum_image`                 ``segment_sum_image_fused``
-                                          (factored)
+                                          (factored; the band kernel
+                                          of the flat raster)
 ========================================  ==================================
 
 Gradients: :class:`SegmentSoftmaxAttendFn`, :class:`GatherRowsFn`,
@@ -76,7 +77,6 @@ _SIGNATURES = {
                         _I, _I, _I, _F, _F, _F, _F, _P],
     "cmr_dense_chain_cn": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _F, _F, _F, _F, _P],
-    "cmr_raster_factored": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmr_error_string": [_I],
 }
 _RESTYPES = {"cmr_error_string": ctypes.c_char_p,
@@ -665,13 +665,21 @@ def segment_mean_count_image(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper of :func:`segment_mean_count_image_plain`: the
     pixel-id band kernel (:func:`_image_raster`, the projection-fused
-    raster's band kernel on the caller's ids) writing means.
-    ``factored=True`` goes through :class:`SegmentSumImageFn` (the factored
-    kernel, counted by :func:`segment_sum_image`, with its gradient); the
-    episodes keep the default."""
+    raster's band kernel on the caller's ids) writing means; the episodes
+    keep this default. ``factored=True`` keeps the JAX package's factored
+    path and its refusals: on CUDA tensors the same band kernel through
+    :class:`SegmentMeanCountImageFn` (no ones column copied; the same bits
+    as ``factored=False``), its launch counted by :func:`segment_sum_image`
+    as well, the factored kernel's count; on the CPU the plain ones-column
+    form through :class:`SegmentSumImageFn`. Both carry the gradient."""
     if factored:
-        return _factored_mean_count(SegmentSumImageFn.apply, data, ids, h, w,
-                                    compute_dtype)
+        _factored_refusal(w, compute_dtype)
+        if not _on_cuda(data, ids):
+            return _factored_mean_count(SegmentSumImageFn.apply, data, ids,
+                                        h, w, compute_dtype)
+        out = SegmentMeanCountImageFn.apply(data, ids, h, w, compute_dtype)
+        segment_sum_image.launches += 1
+        return out
     if not _on_cuda(data, ids):
         return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
     out = _image_raster(data, ids, h, w, compute_dtype, sums=False)
@@ -1067,20 +1075,17 @@ def _chain_tensors(x, weights, biases, *rest):
 # --------------------------------------------------------------------------
 
 FACTORED_MAX_W = 128
-_FACTORED_MAX_SLAB_BYTES = 232448     # a block's [w, F] f32 sums, 227 KB
 
 
-def _factored_operand(data: torch.Tensor, w: int, compute_dtype):
-    """``data`` in its compute dtype (f32, or bf16 rounded once); raises as
-    the JAX package's factored path does (pallas_kernels.py:629-634)."""
+def _factored_refusal(w: int, compute_dtype) -> None:
+    """Raises as the JAX package's factored path does
+    (pallas_kernels.py:629-634), though the band kernel could take both."""
     if compute_dtype == torch.int8:
         raise ValueError("int8 raster is implemented for the flat kernel "
                          "only")
     if w > FACTORED_MAX_W:
         raise ValueError(f"factored raster kernel needs w <= "
                          f"{FACTORED_MAX_W}, got {w}")
-    q, _ = _operands(data, compute_dtype)
-    return q
 
 
 def segment_sum_image_plain(data: torch.Tensor, ids: torch.Tensor, h: int,
@@ -1090,7 +1095,8 @@ def segment_sum_image_plain(data: torch.Tensor, ids: torch.Tensor, h: int,
     ``[0, h*w)`` (negative ones too) contributes nothing. ``compute_dtype``
     None/f32, or bf16 (rows rounded to bf16 once, f32 sums); int8 and
     ``w > 128`` raise ``ValueError``."""
-    q = _factored_operand(data, w, compute_dtype).float()
+    _factored_refusal(w, compute_dtype)
+    q = _operands(data, compute_dtype)[0].float()
     b, n, f = q.shape
     hw = h * w
     pix = torch.where((ids >= 0) & (ids < hw), ids, torch.full_like(ids, hw))
@@ -1102,21 +1108,14 @@ def segment_sum_image_plain(data: torch.Tensor, ids: torch.Tensor, h: int,
 def segment_sum_image(data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
                       compute_dtype=None) -> torch.Tensor:
     """Kernel wrapper of :func:`segment_sum_image_plain`: f32 or bf16
-    ``data``, int32 ``ids``. One block per (sample, image row) sums its row
-    of pixels in shared memory and writes it once."""
+    ``data`` read as it comes, int32 ``ids``. The TPU kernel's factoring
+    (a 128-lane column one-hot times a gate per image row) was made for its
+    vector unit; here the pixel-id band kernel writing sums computes the
+    same function, each pixel's sum in a fixed order."""
     if not _on_cuda(data, ids):
         return segment_sum_image_plain(data, ids, h, w, compute_dtype)
-    b, n, f = data.shape
-    _require("data", data, (torch.float32, torch.bfloat16), (b, n, f))
-    _require("ids", ids, (torch.int32,), (b, n))
-    q = _factored_operand(data, w, compute_dtype).contiguous()
-    if w < 1 or h < 1 or w * f * 4 > _FACTORED_MAX_SLAB_BYTES:
-        raise ValueError(f"factored raster kernel needs h, w >= 1 and a "
-                         f"[w, F] f32 slab of at most 227 KB; got h={h}, "
-                         f"w={w}, F={f}")
-    out = torch.empty((b, h * w, f), device=data.device)
-    _launch("cmr_raster_factored", _ptr(q), 0 if q.dtype == torch.float32
-            else 1, _ptr(ids), _ptr(out), b, n, f, h, w, _stream())
+    _factored_refusal(w, compute_dtype)
+    out, _ = _image_raster(data, ids, h, w, compute_dtype, sums=True)
     segment_sum_image.launches += 1
     return out
 

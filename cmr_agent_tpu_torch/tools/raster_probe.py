@@ -8,8 +8,10 @@ The cases (the JAX package's ``tools/raster_probe.py`` matrix):
   flat    ``kernels.segment_mean_count_image`` — the pixel-id raster
           (kernel 6a), counts in the kernel [f32 | bf16];
   fact    ``segment_mean_count_image(factored=True)`` — the factored
-          raster (kernel 6b: one block per image row, sums in shared
-          memory) of the rows with a ones column [f32 | bf16];
+          raster (kernel 6b): on the card the flat case's band kernel,
+          writing means and counts (the flat case's bits, no ones column
+          copied); on the CPU the plain version of the rows with a ones
+          column [f32 | bf16];
   comp    ``kernels.segment_sum_count_image_compact`` — the compacting
           raster (kernel 8: the band kernel writing sums, each band
           listing its landing rows from all ids) [f32 | bf16]; measure

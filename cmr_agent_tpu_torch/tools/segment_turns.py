@@ -1,9 +1,10 @@
 """The two segment sums (kernels 5 and 7), the exact knn (kernel 3), the
 projection-fused raster (kernel 4), the segment softmax-attend (kernel 1),
-the pixel-id raster (kernel 6a), the compacting raster (kernel 8) and the
-mask-pack compaction (kernel 11) timed alone, at the shapes their checks
-use and on the calls their paths make, one tree of the port per process,
-so that two trees can be compared in turns on one card.
+the pixel-id raster (kernel 6a), the compacting raster (kernel 8), the
+mask-pack compaction (kernel 11) and the factored raster (kernel 6b) timed
+alone, at the shapes their checks use and on the calls their paths make,
+one tree of the port per process, so that two trees can be compared in
+turns on one card.
 
   uniform  kernel 5 at the geo model's three shapes (points -> nodes, the
            knn neighbourhoods -> nodes, nodes -> proxies; F = embed_dim)
@@ -44,27 +45,33 @@ so that two trees can be compared in turns on one card.
            then on the 10 calls of that episode and of one bf16 + int8
            "compact" episode, with each episode's whole device time;
   pack     kernel 11 at the "pack" episode's shape (``mask [B, num_pt]``,
-           70% kept, f32 features, k = num_pt / 2).
+           70% kept, f32 features, k = num_pt / 2);
+  factored kernel 6b (``segment_sum_image``) on the raster probe's rows
+           (every row in the frame) and on a training raster's ids, in f32
+           and bf16, with the count column appended (F + 1) and without it
+           (F), then the raster probe's "fact" and "flat" means at
+           valid-frac 1.0 (every kernel the call runs, the parent's ones
+           column and division included, in ``device_all_ms``).
 
 A row holds the wrapper's ms (CUDA events around repeated calls), the
 device ms of every kernel whose name contains "segment" (``torch.profiler``,
 by name), whether two launches gave the same bits, how the ids spread
 (rows landing, most rows on one segment) and, for kernel 5, the ms of one
 ``scatter_add_`` into a zeroed output with the index prepared. A knn,
-raster, softmax, image, compact or pack row holds the wrapper's ms, the
-device ms by name of the kernels whose names contain "knn", "raster",
-"softmax" or "mask", the
-device ms of every kernel the call ran (``device_all_ms``: PyTorch's
-passes around a kernel, its fills and casts, included; the name filter
-misses kernels of older trees named otherwise, such as an older kernel
-1's ``channel_max_kernel``) and whether two launches gave the same bits. The tool imports the tree it runs from and
+raster, softmax, image, compact, pack or factored row holds the wrapper's
+ms, the device ms by name of the kernels whose names contain "knn",
+"raster", "softmax" or "mask", the device ms of every kernel the call ran
+(``device_all_ms``: PyTorch's passes around a kernel, its fills and casts,
+included; the name filter misses kernels of older trees named otherwise,
+such as an older kernel 1's ``channel_max_kernel``) and whether two
+launches gave the same bits. The tool imports the tree it runs from and
 names no kernel, so to time another tree (a parent's), copy this file into
 that tree's ``cmr_agent_tpu_torch/tools/`` and run it from that tree's
 root::
 
     python -m cmr_agent_tpu_torch.tools.segment_turns [--tag NAME]
         [--parts uniform,geo,request,knn,raster,paths,softmax,image,
-                 compact,pack]
+                 compact,pack,factored]
 
 Prints one JSON line per row and, last, one with the totals per part;
 diagnostics on stderr. With ``--device cpu --config micro`` a rehearsal at
@@ -405,6 +412,31 @@ def image_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
                                  args, kw, dev, max(2, iters // 4)))
 
 
+def factored_part(cfg, b: int, dev, gen, iters: int, rows: list) -> None:
+    """Kernel 6b (``segment_sum_image``) on the raster probe's rows (every
+    row in the frame) and on a training raster's ids, in f32 and bf16, with
+    the count column appended (F + 1) and without it (F); then the probe's
+    "fact" and "flat" means at valid-frac 1.0 in both dtypes."""
+    from .raster_probe import make_inputs
+    h, w, f = cfg.image_h, cfg.image_w, cfg.embed_dim
+    k = cfg.episode_raster_topk() or cfg.num_pt // 2
+    feat, probe_ids = make_inputs(b, k, f, h, w, 1.0, False, dev)
+    aug = torch.cat([feat, torch.ones(b, k, 1, device=dev)], -1)
+    train_ids = train_raster_ids(b, k, h * w, gen).to(dev)
+    for layout, ids in (("probe", probe_ids), ("train", train_ids)):
+        for width, data in ((f + 1, aug), (f, feat)):
+            for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+                rows.append(call_row(
+                    f"factored_{layout}_{mode}_F{width}", "segment_sum_image",
+                    "raster", (data if dt is None else data.to(dt), ids, h,
+                               w, dt), {}, dev, iters))
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        for case, kw in (("fact", {"factored": True}), ("flat", {})):
+            rows.append(call_row(f"factored_{case}_{mode}",
+                                 "segment_mean_count_image", "raster",
+                                 (feat, probe_ids, h, w, dt), kw, dev, iters))
+
+
 def compact_episode(cfg, b: int, dev, dtype: str):
     """One "compact" serving episode in ``dtype`` (seed 0, the overlap head
     centred) -> ``(kernel 8's calls, captured; the episode's whole device
@@ -498,7 +530,7 @@ def total(rows, part: str) -> dict:
 
 
 PARTS = ("uniform", "geo", "request", "knn", "raster", "paths", "softmax",
-         "image", "compact", "pack")
+         "image", "compact", "pack", "factored")
 
 
 def main(argv=None) -> dict:
@@ -629,6 +661,10 @@ def main(argv=None) -> dict:
     if "pack" in parts:
         pack_part(cfg, b, dev, gen, args.iters, rows)
         result["pack"] = total(rows, "pack")
+    if "factored" in parts:
+        factored_part(cfg, b, dev, gen, args.iters, rows)
+        result["factored"] = {p: total(rows, p) for p in dict.fromkeys(
+            r["part"] for r in rows if r["part"].startswith("factored_"))}
     print(json.dumps(result), flush=True)
     return result
 

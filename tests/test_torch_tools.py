@@ -149,6 +149,95 @@ def test_factored_raster_refusals(package, case):
                                              factored=True)
 
 
+@pytest.mark.parametrize("hw", SHAPES, ids=["5x16", "3x128"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_factored_plain_mean_equals_flat_bit_for_bit(mode, hw):
+    """The plain ones-column form (``factored=True``) and the plain flat
+    raster run the same CPU ``scatter_add_`` in row order: the same bits,
+    counts and means."""
+    h, w = hw
+    data, ids = _raster_inputs(27, h, w)
+    args = (_t(data), _t(ids), h, w, _torch_dtype(mode))
+    fact_m, fact_c = kernels.segment_mean_count_image_plain(*args,
+                                                            factored=True)
+    flat_m, flat_c = kernels.segment_mean_count_image_plain(*args)
+    assert torch.equal(fact_c, flat_c) and torch.equal(fact_m, flat_m)
+
+
+@pytest.mark.parametrize("hw", SHAPES, ids=["5x16", "3x128"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_jax_factored_and_flat_means_agree(mode, hw):
+    """The two TPU kernels (factored and flat ``segment_sum_image_fused``,
+    interpret mode) compute one function, so one Hopper kernel serves
+    both: counts exact, means rtol 1e-5 atol 1e-6 (sums in another
+    order)."""
+    h, w = hw
+    data, ids = _raster_inputs(28, h, w)
+    fact_m, fact_c = pk.segment_mean_count_image_fused(
+        jnp.asarray(data), jnp.asarray(ids), h, w, 128, True,
+        _jax_dtype(mode), True)
+    flat_m, flat_c = pk.segment_mean_count_image_fused(
+        jnp.asarray(data), jnp.asarray(ids), h, w, 128, False,
+        _jax_dtype(mode), True)
+    np.testing.assert_array_equal(np.asarray(fact_c), np.asarray(flat_c))
+    assert np.asarray(fact_c).sum() == ((ids >= 0) & (ids < h * w)).sum()
+    np.testing.assert_allclose(np.asarray(fact_m), np.asarray(flat_m),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_factored_mean_function_matches_jax(mode):
+    """:class:`SegmentMeanCountImageFn` (the route of
+    ``segment_mean_count_image(factored=True)`` on CUDA tensors, here on
+    the CPU): means and counts the ones-column wrapper's bits; its gradient
+    (the gather of ``g / max(count, 1)``) equal to ``jax.vjp`` of the
+    factored Pallas mean, zero for routed-out rows."""
+    h, w = 3, 128
+    data, ids = _raster_inputs(30, h, w)
+    g = np.random.default_rng(31).normal(
+        size=(2, h * w, data.shape[-1])).astype(np.float32)
+    d = _t(data).requires_grad_()
+    got_m, got_c = kernels.SegmentMeanCountImageFn.apply(
+        d, _t(ids), h, w, _torch_dtype(mode))
+    want_m, want_c = kernels.segment_mean_count_image(
+        _t(data), _t(ids), h, w, _torch_dtype(mode), factored=True)
+    assert torch.equal(got_c, want_c) and torch.equal(got_m.detach(), want_m)
+    got_m.backward(_t(g))
+
+    def means(x):
+        return pk.segment_mean_count_image_fused(
+            x, jnp.asarray(ids), h, w, 128, True, _jax_dtype(mode), True)[0]
+
+    _, vjp = jax.vjp(means, jnp.asarray(data))
+    (want,) = vjp(jnp.asarray(g))
+    np.testing.assert_array_equal(d.grad.numpy(), np.asarray(want))
+    routed_out = (ids < 0) | (ids >= h * w)
+    assert routed_out.any() and np.all(d.grad.numpy()[routed_out] == 0.0)
+
+
+@pytest.mark.parametrize("case", ["int8", "wide"])
+def test_factored_card_route_refuses(case, monkeypatch):
+    """On CUDA tensors (``_on_cuda`` made true here) ``segment_sum_image``
+    and ``segment_mean_count_image(factored=True)`` refuse int8 and
+    ``w > 128`` with ``ValueError`` as the JAX package does, before any
+    kernel is reached."""
+    h, w = (5, 16) if case == "int8" else (2, 129)
+    data, ids = _raster_inputs(32, h, w, n=64)
+    dt = torch.int8 if case == "int8" else None
+
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a kernel was reached")
+
+    monkeypatch.setattr(kernels, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(kernels, "_image_raster", no_launch)
+    monkeypatch.setattr(kernels, "_launch", no_launch)
+    with pytest.raises(ValueError):
+        kernels.segment_sum_image(_t(data), _t(ids), h, w, dt)
+    with pytest.raises(ValueError):
+        kernels.segment_mean_count_image(_t(data), _t(ids), h, w, dt,
+                                         factored=True)
+
+
 def test_segment_mean_count_matches_jax():
     """The generic segment mean (raster_probe's "base"): counts exact,
     means rtol 1e-5, against ``segment_mean_count_fused``."""
@@ -372,6 +461,39 @@ def test_segment_turns_compact_pack_parts_on_cpu(capsys):
     assert routed[0]["landed_rows"] == 0
     assert rows[-1]["part"] == "pack" and rows[-1]["shape"][0] == [
         2, cfg.num_pt]
+
+
+def test_segment_turns_factored_part_on_cpu(capsys):
+    """The kernel 6b part alone at micro size: ``segment_sum_image`` at
+    both layouts in f32 and bf16 with and without the count column, then
+    the probe's "fact" and "flat" means in both dtypes, each call giving
+    the same bits twice and the two means landing the same rows."""
+    from cmr_agent_tpu_torch.config import micro_config
+    f = micro_config().embed_dim
+    out = _tool("segment_turns").main(TOOL_ARGS["segment_turns"]
+                                      + ["--device", "cpu", "--parts",
+                                         "factored"])
+    assert set(out) == {"tag", "device", "factored"}
+    want = [f"factored_{layout}_{mode}_F{width}"
+            for layout in ("probe", "train") for width in (f + 1, f)
+            for mode in ("f32", "bf16")]
+    want += [f"factored_{case}_{mode}" for mode in ("f32", "bf16")
+             for case in ("fact", "flat")]
+    assert list(out["factored"]) == want
+    assert all(t["calls"] == 1 and t["same_bits"] and t["ms"] > 0.0
+               for t in out["factored"].values())
+    rows = [json.loads(ln) for ln in
+            capsys.readouterr().out.strip().splitlines()[:-1]]
+    sums = [r for r in rows if r["kernel"] == "segment_sum_image"]
+    assert len(sums) == 8 and all(r["shape"][0][-1] in (f, f + 1)
+                                  for r in sums)
+    means = {r["part"]: r for r in rows
+             if r["kernel"] == "segment_mean_count_image"}
+    for mode in ("f32", "bf16"):
+        fact, flat = means[f"factored_fact_{mode}"], means[
+            f"factored_flat_{mode}"]
+        assert fact["options"] == {"factored": "True"}
+        assert fact["landed_rows"] == flat["landed_rows"] > 0
 
 
 @pytest.mark.parametrize("name", sorted(TOOL_ARGS))
