@@ -9,6 +9,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase softmax_image          # kernels 1 and 6a
     python3 chip_smoke.py --phase compact_pack           # kernels 11 and 8
     python3 chip_smoke.py --phase factored               # kernel 6b
+    python3 chip_smoke.py --phase eval                   # the E7 evaluation
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -137,7 +138,24 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     phase 16's raster cases, timed at the training shape, on the 40 calls
     of one agent-training run and the 10 of one "flat" bf16 + int8
     episode; a profile of one int8 call (the port's kernels only); then
-    both wrappers raising, with no launch, on what they cannot take.
+    both wrappers raising, with no launch, on what they cannot take;
+18. the flagship evaluation at the committed trained weights (also alone
+    with ``--phase eval``): each weight export's sha256 against
+    ``weights/manifest.json``, its leaves, bytes and load time
+    (``[weights]``); the sha256 of E7's 64 test scenes as this host builds
+    them against the JAX package's split's (``[eval_split]``); the first batch of E7's test split (8 scenes) in f32
+    through ``cli.test_agent``'s path with the kernels and with their plain
+    versions, each candidate's coarse pose, episode (phase 4's gate), final
+    pose, verification statistics and the selections held
+    (``[eval_twin]``); one bf16 E7 batch's launches per kernel, time and
+    profile (``[eval_launches]``, ``[profile] phase=eval``); the E7 command
+    of ``runs_r5/README.md`` through ``cli.test_agent.main`` (64 scenes,
+    bf16, batch 8, K = 13, the re-voted 3-member beam): registration recall,
+    the ceilings, the median errors, the steady time per pair, peak memory
+    and its launches (8 times one batch's), beside the JAX package's
+    published accuracy (``[eval_agent]``), and the per-scene ``--save-mat``
+    fields as one JSON line (``[eval_scenes]``); then ``cli.test_geo`` on 8
+    scenes of the split in f32 (``[eval_geo]``).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -154,6 +172,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 from cmr_agent_tpu_torch.tools.segment_turns import (
     agent_raster_calls, capture, capture_calls, flat_episode_raster_calls,
@@ -3046,6 +3066,319 @@ def check_compact_pack(torch, kernels, serve, kitti_config, dev) -> None:
     check_compact_calls(torch, kernels, calls)
 
 
+# the flagship evaluation (runs_r5/README.md, E7), as the JAX package's
+# command gives it, on the card
+E7_ARGV = ("--dataset synthetic --synthetic-scene structured "
+           "--synthetic-length 64 --dtype bfloat16 "
+           "--iter-ckpt checkpoint/iter_kitti/epoch-1-step-10000 "
+           "--geo-ckpt runs_r4/geo_pi --fine-geo-ckpt runs_r4/geo_45 "
+           "--agent-ckpt runs_r4/agent_45 --unmasked-warp --pose-aware "
+           "--aux-head --bearing-init --hypo-score combo --refine-rounds 1 "
+           "--eval-batch-size 8 --iter-hypotheses 13 "
+           "--refine-beam combo,mean_valid,ir_smooth "
+           "--beam-score above50_norm").split()
+# the JAX package's published E7 accuracy (runs_r5/README.md:40-41): 47 of
+# 64 scenes, a 48-scene ceiling
+E7_PUBLISHED = dict(registration_recall=0.734, rr_any_hypothesis=0.750,
+                    rte_median_all=0.69, rre_median_all=0.78)
+EVAL_KERNELS = ("segment_softmax_attend", "gather_rows", "knn",
+                "segment_mean_count_image_project", "segment_sum_shared")
+# the twin's gates: phase 4's f32 logit tolerance, a pose to 1e-4; raw
+# verification statistics (cosine means, point shares) to 1e-3; the
+# z-scored combo and the selections by it at phase 10's 2e-2
+EVAL_STAT_TOL, EVAL_Z_TOL = 1e-3, 2e-2
+
+
+# sha256 of E7's 64 test scenes (every key's bytes, in key order, scene by
+# scene), as both packages' build_dataset give them on the host where
+# tests/test_torch_checkpoint.py holds them equal
+E7_SPLIT_SHA256 = ("39051e55607d4342e31c0cf72a6892ad"
+                   "232ddd422d8661cfeb1fcf49bc542dd3")
+
+
+def e7_split_digest() -> str:
+    """sha256 of E7's test split as ``cli.common.build_dataset`` builds it
+    on this host (the native FPS and 1-NN are compiled here)."""
+    import argparse
+    import hashlib
+
+    from cmr_agent_tpu_torch.cli.common import build_dataset
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.data.loader import DataLoader
+    ds = build_dataset(kitti_config(), argparse.Namespace(
+        dataset="synthetic", tiny=False, synthetic_length=64, val_length=0,
+        synthetic_scene="structured"), "test")
+    h = hashlib.sha256()
+    for batch in DataLoader(ds, 1, num_workers=8):
+        for k in sorted(batch):
+            h.update(k.encode() + np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def e7_argv(dev, *extra, dtype=None):
+    argv = list(E7_ARGV) + ["--device", str(dev)]
+    if dtype is not None:
+        argv[argv.index("--dtype") + 1] = dtype
+    return argv + list(extra)
+
+
+def check_weights(torch, dev):
+    """``[weights]``: each committed export's sha256 against the manifest,
+    its leaves and bytes, and the time to read it and load it into its
+    module on the card (numpy and torch only)."""
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.models.agent import CMRAgent
+    from cmr_agent_tpu_torch.models.cost_volume import IterModel
+    from cmr_agent_tpu_torch.models.multi_head import MultiHeadModel
+    from cmr_agent_tpu_torch.train import checkpoint
+    cfg = kitti_config(**FLAGSHIP_CFG)
+    modules = {"multihead": MultiHeadModel, "agent": CMRAgent,
+               "itermodel": IterModel}
+    for stem, entry in sorted(checkpoint.manifest().items()):
+        path = checkpoint.WEIGHTS_DIR / entry["file"]
+        sha_ok = checkpoint.file_sha256(path) == entry["sha256"]
+        assert sha_ok, (stem, "sha256 differs from the manifest")
+        which = ("agent" if stem.startswith("agent") else "itermodel"
+                 if stem.startswith("iter") else "multihead")
+        module = modules[which](cfg).to(dev)
+        t0 = time.perf_counter()
+        variables = checkpoint.restore_model_variables(str(path))
+        checkpoint.load_module_variables(module, cfg, variables, which)
+        torch.cuda.synchronize()
+        line("weights", file=entry["file"], orbax=entry["orbax"],
+             leaves=entry["leaves"], bytes=entry["bytes"], sha256_ok=sha_ok,
+             load_s=f"{time.perf_counter() - t0:.3f}",
+             step=int(variables["step"]) if "step" in variables else "none")
+
+
+def compare_candidate(torch, got_steps, want_steps, rows, atol: float):
+    """Phase 4's episode gate (``compare_episodes``) on the samples
+    ``rows`` of one candidate: each step's logits within ``atol``, its
+    actions equal where the top-2 margin exceeds ``atol``, while a
+    sample's action history agrees. Returns (max logit diff, the samples
+    whose history agreed throughout)."""
+    agree, max_diff = rows.clone(), 0.0
+    for (gr, gt), (wr, wt) in zip(got_steps, want_steps):
+        if not agree.any():
+            break
+        for g, w in ((gr, wr), (gt, wt)):
+            diff = (g - w).abs()[agree].max().item()
+            max_diff = max(max_diff, diff)
+            assert diff <= atol, f"logits differ by {diff} > {atol}"
+            top2 = torch.topk(w, 2, dim=-1).values
+            sure = (top2[..., 0] - top2[..., 1] > atol) & agree[:, None]
+            assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
+        agree &= ((gr.argmax(-1) == wr.argmax(-1)).all(-1)
+                  & (gt.argmax(-1) == wt.argmax(-1)).all(-1))
+    return max_diff, agree
+
+
+def run_eval_twin(torch, kernels, dev):
+    """``[eval_twin]``: the first E7 batch in f32 through ``cli.test_agent``'s
+    path with the kernels and with their plain versions. Every candidate's
+    coarse pose is held to 1e-4, its episode to phase 4's f32 gate and its
+    final pose to 1e-4 where its actions agreed; its verification
+    statistics then to ``EVAL_STAT_TOL``; a sample whose candidates all
+    agreed has its combo scores held to ``EVAL_Z_TOL`` and the pose its
+    selection picks to 1e-4 where the plain twin's margin exceeds that;
+    where the beam members' statistics agree too and the re-vote's margin
+    exceeds ``EVAL_STAT_TOL``, its final RTE / RRE to 1e-3 m / 1e-2 deg."""
+    from cmr_agent_tpu_torch.cli import test_agent
+    from cmr_agent_tpu_torch.cli.common import to_device
+    _, _, loader, evaluate = test_agent.prepare(
+        e7_argv(dev, "--synthetic-length", "8", dtype="float32"))
+    batch = to_device(next(iter(loader)), dev)
+    got = evaluate(batch)
+    with plain_kernels(kernels):
+        want = evaluate(batch)
+    b, k = want["hypo_rte"].shape
+    coarse = (got["cand_coarse"] - want["cand_coarse"]).abs().amax((2, 3))
+    c_agree = coarse <= 1e-4                                    # [B, K]
+    assert bool(c_agree.all()), coarse.tolist()
+    logit_diff, pose_diff, same = 0.0, 0.0, torch.zeros_like(c_agree)
+    for j in range(k):
+        diff, hist = compare_candidate(torch, got["cand_steps"][j],
+                                       want["cand_steps"][j], c_agree[:, j],
+                                       1e-3)
+        logit_diff = max(logit_diff, diff)
+        if hist.any():
+            d = (got["cand_final"][:, j] - want["cand_final"][:, j]
+                 ).abs().amax((1, 2))[hist].max().item()
+            assert d <= 1e-4, (j, d)
+            pose_diff = max(pose_diff, d)
+        same[:, j] = hist
+    same = same.cpu().numpy()
+    stat_diff = max(float(np.abs(got["hypo_stats"][s] - want["hypo_stats"][s]
+                                 )[same].max(initial=0.0))
+                    for s in want["hypo_stats"] if s != "combo")
+    assert stat_diff <= EVAL_STAT_TOL, stat_diff
+    whole = same.all(axis=1)                                    # [B]
+    combo_w = want["hypo_stats"]["combo"]
+    z_diff = float(np.abs(got["hypo_stats"]["combo"] - combo_w)[whole].max(
+        initial=0.0))
+    assert z_diff <= EVAL_Z_TOL, z_diff
+    # a selection is held by the pose it picks: candidates that reach one
+    # pose (the yaw grid closes on itself at pi) score alike to rounding,
+    # and distinct_margin passes over them
+    margin = distinct_margin(torch, torch.from_numpy(combo_w)).numpy()
+    # (a margin of inf: every candidate scores alike, and any may be picked)
+    sure = whole & (margin > EVAL_Z_TOL) & np.isfinite(margin)
+    rows = torch.arange(b, device=got["cand_final"].device)
+
+    def picked(rec):
+        sel = torch.as_tensor(rec["sel"], device=rows.device)
+        return torch.cat([rec["cand_coarse"][rows, sel],
+                          rec["cand_final"][rows, sel]], dim=1)
+
+    sel_diff = (picked(got) - picked(want)).abs().amax((1, 2)).cpu().numpy()
+    assert (sel_diff[sure] <= 1e-4).all(), (got["sel"], want["sel"], margin,
+                                            sel_diff)
+    # the beam re-vote, where every member's statistics agree and the
+    # margin over the next differently scoring member exceeds the tolerance
+    beam_w = want["beam_stats"]["above50_norm"]
+    beam_agree = whole & np.all(
+        [np.abs(got["beam_stats"][s] - want["beam_stats"][s]).max(axis=1)
+         <= EVAL_STAT_TOL for s in want["beam_stats"] if s != "combo"],
+        axis=0)
+    beam_margin = distinct_margin(torch, torch.from_numpy(beam_w)).numpy()
+    beam_sure = (beam_agree & (beam_margin > EVAL_STAT_TOL)
+                 & np.isfinite(beam_margin))
+    beam_same = ((np.abs(got["rte"] - want["rte"]) <= 1e-3)
+                 & (np.abs(got["rre"] - want["rre"]) <= 1e-2))
+    assert beam_same[beam_sure].all(), (got["beam_sel"], want["beam_sel"],
+                                        beam_margin)
+    line("eval_twin", dtype="float32", samples=b, candidates=b * k,
+         coarse_agree=int(c_agree.sum()), history_agree=int(same.sum()),
+         max_coarse_diff=coarse.max().item(), max_logit_diff=logit_diff,
+         max_final_pose_diff=pose_diff, max_stat_diff=stat_diff,
+         max_combo_diff=z_diff, selections_held=int(sure.sum()),
+         same_index=int((got["sel"] == want["sel"]).sum()),
+         max_selected_pose_diff=float(sel_diff.max()),
+         selection_margins=",".join(f"{m:.3f}" for m in margin),
+         beam_held=int(beam_sure.sum()),
+         beam_same_index=int((got["beam_sel"] == want["beam_sel"]).sum()),
+         beam_margins=",".join(f"{m:.4f}" for m in beam_margin),
+         max_rte_diff=float(np.abs(got["rte"] - want["rte"]).max()),
+         max_rre_diff=float(np.abs(got["rre"] - want["rre"]).max()),
+         solved_kernels=int(((got["rte"] < 5) & (got["rre"] < 10)).sum()),
+         solved_plain=int(((want["rte"] < 5) & (want["rre"] < 10)).sum()))
+
+
+def e7_batch_profile(torch, kernels, dev):
+    """One bf16 E7 batch through ``cli.test_agent``'s path: each kernel's
+    launches (``[eval_launches]``), its time and a profile. Returns the
+    launches of the batch."""
+    from cmr_agent_tpu_torch.cli import test_agent
+    from cmr_agent_tpu_torch.cli.common import to_device
+    _, _, loader, evaluate = test_agent.prepare(
+        e7_argv(dev, "--synthetic-length", "8"))
+    batch = to_device(next(iter(loader)), dev)
+    evaluate(batch)                                           # warm-up
+    kernels.reset_launch_counts()
+    _, seconds = timed(torch, lambda: evaluate(batch))
+    counts = kernels.launch_counts()
+    line("eval_launches", dtype="bfloat16", per_batch=True,
+         batch_s=f"{seconds:.3f}", **counts)
+    assert all(counts[n] > 0 for n in EVAL_KERNELS), counts
+    assert all(counts[n] == 0 for n in TRAINING_KERNELS), counts
+    profile_call(torch, lambda: evaluate(batch),
+                 unprofiled_ms=seconds * 1e3, phase="eval", dtype="bfloat16")
+    return counts
+
+
+def run_eval_agent(torch, kernels, dev, per_batch):
+    """``[eval_agent]``: the E7 command through ``cli.test_agent.main``,
+    its launches (one batch's times the number of batches) and peak
+    memory, and
+    ``[eval_scenes]``: the per-scene ``--save-mat`` fields as one JSON
+    line."""
+    import os
+    import tempfile
+
+    import scipy.io as scio
+    from cmr_agent_tpu_torch.cli import test_agent
+    with tempfile.TemporaryDirectory() as tmp:
+        mat = os.path.join(tmp, "e7.mat")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            m = test_agent.main(e7_argv(dev, "--save-mat", mat))
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        scenes = {k: np.round(v.astype(np.float64), 4).squeeze().tolist()
+                  for k, v in scio.loadmat(mat).items()
+                  if not k.startswith("__")}
+    scenes_asked = int(E7_ARGV[E7_ARGV.index("--synthetic-length") + 1])
+    assert m["num_samples"] == scenes_asked, m
+    batches = scenes_asked // int(
+        E7_ARGV[E7_ARGV.index("--eval-batch-size") + 1])
+    assert counts == {n: batches * c for n, c in per_batch.items()}, \
+        (counts, per_batch)
+    assert all(np.isfinite(m[k]) for k in ("rte_median_all",
+                                           "rre_median_all"))
+    steady = m["avg_episode_time_steady_s"]
+    line("eval_agent", dtype="bfloat16",
+         registration_recall=m["registration_recall"],
+         solved=round(m["registration_recall"] * m["num_samples"]),
+         rr_any_hypothesis=m["rr_any_hypothesis"],
+         rr_beam_any=m["rr_beam_any"], rr_selected=m["rr_selected"],
+         rr_pre_refine=m["rr_pre_refine"],
+         rte_median_all=m["rte_median_all"],
+         rre_median_all=m["rre_median_all"],
+         coarse_rte_mean=m["coarse_rte_mean"],
+         num_samples=m["num_samples"],
+         steady_s_per_pair=f"{steady:.5f}",
+         pairs_per_s=f"{1 / steady:.3f}",
+         first_batch_s_per_pair=f"{m['avg_episode_time_s']:.5f}",
+         peak_gib=f"{peak / 2**30:.3f}",
+         **{f"jax_published_{k}": v for k, v in E7_PUBLISHED.items()})
+    line("eval_launches", dtype="bfloat16", batches=batches, **counts)
+    print("[eval_scenes] " + json.dumps(scenes, separators=(",", ":")),
+          flush=True)
+    return counts
+
+
+def run_eval_geo(torch, kernels, dev):
+    """``[eval_geo]``: ``cli.test_geo`` on the structured test split in
+    f32, ``--max-batches 8``: the geo model's matching inlier ratio and the
+    cost volume's RTE / RRE."""
+    from cmr_agent_tpu_torch.cli import test_geo
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        r, seconds = timed(torch, lambda: test_geo.main([
+            "--dataset", "synthetic", "--synthetic-scene", "structured",
+            "--synthetic-length", "64", "--geo-ckpt", "runs_r4/geo_pi",
+            "--iter-ckpt", "checkpoint/iter_kitti/epoch-1-step-10000",
+            "--unmasked-warp", "--max-batches", "8", "--device",
+            str(dev)]))
+    counts = kernels.launch_counts()
+    assert r["num_samples"] == 8 and 0 < r["matching_inlier_ratio"] <= 1, r
+    assert counts["segment_sum_shared"] > 0 and counts["knn"] == 8, counts
+    line("eval_geo", dtype="float32", seconds=f"{seconds:.2f}", **r,
+         knn_launches=counts["knn"],
+         segment_sum_shared_launches=counts["segment_sum_shared"])
+
+
+def run_eval(torch, kernels, dev) -> None:
+    """The evaluation phase: the weights, E7's scenes, the f32 twin, one
+    profiled bf16 batch, E7 and ``cli.test_geo``."""
+    check_weights(torch, dev)
+    t0 = time.perf_counter()
+    digest = e7_split_digest()
+    line("eval_split", scenes=64, sha256=digest,
+         equal_to_the_jax_split=digest == E7_SPLIT_SHA256,
+         seconds=f"{time.perf_counter() - t0:.2f}")
+    assert digest == E7_SPLIT_SHA256, "E7's scenes differ from the JAX split"
+    run_eval_twin(torch, kernels, dev)
+    torch.cuda.empty_cache()
+    per_batch = e7_batch_profile(torch, kernels, dev)
+    torch.cuda.empty_cache()
+    run_eval_agent(torch, kernels, dev, per_batch)
+    torch.cuda.empty_cache()
+    run_eval_geo(torch, kernels, dev)
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -3054,7 +3387,7 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     phase 12, "knn_raster" phase 16 (kernels 3 and 4), "softmax_image"
     phase 17 (kernels 1 and 6a), "compact_pack" kernels 11 and 8 from
     phases 8 and 14, "factored" kernel 6b and the raster probes from phase
-    15. Returns the number of repeats that failed their
+    15, "eval" phase 18 (the E7 evaluation). Returns the number of repeats that failed their
     gate."""
     failed = 0
     if phase == "segment_sums":
@@ -3077,6 +3410,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
             elif phase == "factored":
                 check_factored_kernel(torch, kernels, dev)
                 run_raster_probes(torch, kernels, run_tool)
+            elif phase == "eval":
+                run_eval(torch, kernels, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -3098,7 +3433,7 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored [--repeat N]``
+    factored|eval [--repeat N]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate)."""
     import argparse
@@ -3106,7 +3441,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
-                             "factored"),
+                             "factored", "eval"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     opts = ap.parse_args(argv)
@@ -3198,6 +3533,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     check_softmax_image(torch, kernels, serve, kitti_config, dev)
     line("ninth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_eval(torch, kernels, dev)
+    line("twelfth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
     # agent training run, one composed request, the "pack" episode, the

@@ -1,0 +1,244 @@
+"""Shared CLI plumbing (counterpart of the JAX package's ``cli/common.py``):
+the common flags, the config, the dataset and its loader, seeding, and the
+geo model's weights.
+
+Differences from the JAX package's CLIs:
+
+* ``--device`` (default ``cuda``): the entry points run on the card unless
+  asked for the CPU, and asking for CUDA where there is none raises;
+* the JAX runtime's own flags are not ported: ``--distributed``,
+  ``--coordinator``, ``--num-processes``, ``--process-id``,
+  ``--debug-nans``, the compile cache and ``--profile``;
+* settings the port's ``Config`` refuses (``--obs3d-compact``,
+  ``--remat``) raise as the ``Config`` does;
+* ``--dataset synthetic`` is served; ``kitti`` and ``nuscenes`` raise
+  (ROADMAP A.6), and so does a reference ``.pth`` checkpoint;
+* checkpoints are the weight exports of :mod:`..train.checkpoint`, found
+  from the Orbax paths the JAX package's commands name.
+
+``--raster-int8`` stays ``store_true`` as in the JAX package, so the same
+command means the same in both; like there, it cannot turn the ``Config``
+default (``raster_int8=True``) off.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import random
+
+import numpy as np
+import torch
+
+from ..config import Config, kitti_config, tiny_config
+
+
+def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--dataset", default="kitti",
+                   choices=["kitti", "nuscenes", "synthetic"])
+    p.add_argument("--data-root", default="", help="dataset root directory")
+    p.add_argument("--tiny", action="store_true",
+                   help="miniature config for smoke runs")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None,
+                   help="cap optimizer steps (debug)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--logdir", default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--synthetic-length", type=int, default=64)
+    p.add_argument("--val-length", type=int, default=0,
+                   help="synthetic val/test split size (0 = same as "
+                        "--synthetic-length)")
+    p.add_argument("--synthetic-scene", default="random",
+                   choices=["random", "structured"],
+                   help="synthetic generator: 'structured' (persistent "
+                        "ground+boxes, rendered image) stays observable at "
+                        "the full +-10 m/+-pi perturbation protocol")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="loader workers; default min(cfg.num_workers, host "
+                        "cores)")
+    p.add_argument("--loader-backend",
+                   choices=["auto", "threads", "processes", "sync"],
+                   default="auto",
+                   help="auto = process pool for the GIL-bound real "
+                        "datasets when workers > 1, threads otherwise; "
+                        "sync = in-line loading (debug)")
+    p.add_argument("--dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype override (Config.compute_dtype)")
+    p.add_argument("--raster-mode", default=None,
+                   choices=["topk", "compact", "flat", "pack", "mega",
+                            "megatopk"],
+                   help="episode raster strategy override "
+                        "(Config.raster_mode)")
+    p.add_argument("--raster-int8", action="store_true",
+                   help="int8 observation raster (Config.raster_int8, "
+                        "already the default)")
+    p.add_argument("--obs3d-compact", action="store_true",
+                   help="Config.obs3d_source='compact' (the port's Config "
+                        "refuses it)")
+    p.add_argument("--stop-file", default="",
+                   help="graceful stop of a training run when this file "
+                        "appears")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions")
+    return p
+
+
+def build_config(args) -> Config:
+    overrides = {}
+    if args.batch_size is not None:
+        overrides["train_batch_size"] = args.batch_size
+        overrides["val_batch_size"] = args.batch_size
+    if args.epochs is not None:
+        overrides["epoch"] = args.epochs
+    if args.seed is not None:
+        overrides["seed"] = args.seed
+    if args.logdir is not None:
+        overrides["logdir"] = args.logdir
+    if args.ckpt_dir is not None:
+        overrides["ckpt_dir"] = args.ckpt_dir
+    if getattr(args, "dtype", None) is not None:
+        overrides["compute_dtype"] = args.dtype
+
+    if args.tiny:
+        return tiny_config(**overrides)
+    if args.dataset == "nuscenes":
+        raise NotImplementedError("the port has no nuScenes configuration "
+                                  "yet (ROADMAP A.6)")
+    return kitti_config(args.data_root, **overrides)
+
+
+def apply_obs_overrides(cfg: Config, args) -> Config:
+    """Fold the observation / optimizer / amplitude flags that the calling
+    parser defines into the config (absent attributes are skipped), one
+    flag -> config mapping for every CLI."""
+    over = {}
+    if getattr(args, "pose_aware", False):
+        over["pose_aware_observation"] = True
+    if getattr(args, "obs_bearing", False):
+        over["obs_bearing_channels"] = True
+    if getattr(args, "aux_head", False):
+        # the aux head reads the bearing channels, so it implies them
+        over["obs_bearing_channels"] = True
+        over["policy_aux_state"] = True
+    if getattr(args, "bearing_init", False):
+        over["bearing_init"] = True
+    if getattr(args, "lr", None) is not None:
+        over["lr"] = args.lr
+    if getattr(args, "t_amp", None) is not None:
+        over["p_tx_amplitude"] = args.t_amp
+        over["p_tz_amplitude"] = args.t_amp
+    if getattr(args, "r_amp", None) is not None:
+        over["p_ry_amplitude"] = args.r_amp
+    if getattr(args, "w_entropy", None) is not None:
+        over["w_entropy"] = args.w_entropy
+    if getattr(args, "alpha", None) is not None:
+        over["alpha"] = args.alpha
+    if getattr(args, "unmasked_warp", False):
+        over["cost_volume_unmasked"] = True
+    if getattr(args, "remat", False):
+        over["cost_volume_remat"] = True
+    if getattr(args, "embed_dim", 0):
+        over["embed_dim"] = args.embed_dim
+    if getattr(args, "mlp_dim", 0):
+        over["mlp_dim"] = args.mlp_dim
+    if getattr(args, "raster_mode", None):
+        over["raster_mode"] = args.raster_mode
+    if getattr(args, "raster_int8", False):
+        over["raster_int8"] = True
+    if getattr(args, "obs3d_compact", False):
+        over["obs3d_source"] = "compact"
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def build_dataset(cfg: Config, args, mode: str):
+    """The ``mode`` ("train", "val", "test") split: the synthetic dataset
+    with seed 0 / 1 / 2 and the native host ops, as the JAX package builds
+    it, so both packages evaluate the same scenes."""
+    from ..data import SyntheticDataset
+    from ..native import get_fast_host_ops
+
+    if args.dataset == "synthetic" or args.tiny:
+        fps_fn, nn_fn = get_fast_host_ops()
+        seed = {"train": 0, "val": 1, "test": 2}[mode]
+        length = args.synthetic_length
+        if mode != "train" and getattr(args, "val_length", 0):
+            length = args.val_length
+        return SyntheticDataset(cfg, length=length, seed=seed,
+                                fps_fn=fps_fn, nn_fn=nn_fn,
+                                scene=getattr(args, "synthetic_scene",
+                                              "random"))
+    raise NotImplementedError(f"--dataset {args.dataset}: the port reads "
+                              "no dataset from disk yet (ROADMAP A.6)")
+
+
+def make_loader(cfg: Config, args, dataset, *, batch_size: int,
+                shuffle: bool = False, seed: int = 0):
+    """A :class:`..data.loader.DataLoader` with ``--num-workers`` workers
+    (default ``min(cfg.num_workers, host cores)``); ``auto`` takes the
+    process pool for a GIL-bound dataset with more than one worker and
+    threads otherwise."""
+    from ..data.loader import DataLoader
+
+    workers = (args.num_workers if getattr(args, "num_workers", None)
+               is not None else min(cfg.num_workers, os.cpu_count() or 1))
+    backend = getattr(args, "loader_backend", "auto")
+    if backend == "sync":
+        workers = 0
+    gil_bound = getattr(dataset, "gil_bound",
+                        getattr(args, "dataset", "") in ("kitti", "nuscenes"))
+    use_processes = (backend == "processes"
+                     or (backend == "auto" and gil_bound and workers > 1))
+    return DataLoader(dataset, batch_size, shuffle=shuffle,
+                      num_workers=workers, seed=seed,
+                      use_processes=use_processes)
+
+
+def set_seed(seed: int) -> None:
+    """Seed the host's generators and torch's."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def to_device(batch, device) -> dict:
+    """A loader batch as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def load_model(cfg: Config, module: torch.nn.Module, ckpt: str, which: str,
+               what: str, device) -> torch.nn.Module:
+    """``module`` with the weights of checkpoint ``ckpt`` (a weight export
+    or the Orbax tree it came from), or, with no ``ckpt``, random weights
+    from seed 0 after a WARNING, as the JAX package's CLIs do; on
+    ``device``, in eval mode."""
+    from ..serve import init_random_
+    from ..train.checkpoint import (load_module_variables,
+                                    restore_model_variables)
+
+    if ckpt.endswith(".pth"):
+        raise NotImplementedError(
+            f"{ckpt}: the reference's .pth import is not ported yet "
+            "(ROADMAP A.1)")
+    if ckpt:
+        load_module_variables(module, cfg, restore_model_variables(ckpt),
+                              which)
+        print(f"loaded {what} checkpoint from {ckpt}")
+    else:
+        init_random_(module, torch.Generator().manual_seed(0))
+        print(f"WARNING: no --{what}-ckpt; using a randomly initialised "
+              f"{what} model")
+    return module.to(device).eval()
+
+
+def load_geo_variables(cfg: Config, args, device):
+    """The geo model (``MultiHeadModel``) of ``--geo-ckpt`` on ``device``
+    (counterpart of the JAX package's ``cli/train_agent.py:74-95``)."""
+    from ..models.multi_head import MultiHeadModel
+    return load_model(cfg, MultiHeadModel(cfg), args.geo_ckpt, "multihead",
+                      "geo", device)

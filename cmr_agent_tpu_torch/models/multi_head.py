@@ -52,3 +52,44 @@ class MultiHeadModel(nn.Module):
         out["matrix_accumulated"] = torch.eye(
             4, device=batch["pc"].device).expand(b, 4, 4)
         return out
+
+
+def matching_inlier_ratio(pc_geo_feat, img_geo_feat, pc_mask, point_xy_all,
+                          image_w: int, image_h: int, px_thresh: float = 3.0,
+                          chunk: int = 8192):
+    """Feature-NN matching inlier ratio of one sample (the JAX package's
+    ``models/multi_head.py:74-92``; reference Test_Geo.py:109-119): the
+    share of the masked points whose feature-nearest pixel lies within
+    ``px_thresh`` of the point's true projection. ``pc_geo_feat [N, F]``,
+    ``img_geo_feat [H, W, F]``, ``pc_mask [N]`` bool, ``point_xy_all [2,
+    N]``. Returns a 0-d tensor."""
+    _, inlier = matching_centers(pc_geo_feat, img_geo_feat, pc_mask,
+                                 point_xy_all, image_w, px_thresh, chunk)
+    return (inlier & pc_mask).sum() / pc_mask.sum().clamp_min(1)
+
+
+def matching_centers(pc_geo_feat, img_geo_feat, pc_mask, point_xy_all,
+                     image_w: int, px_thresh: float = 3.0,
+                     chunk: int = 8192):
+    """Each point's feature-nearest pixel ``(x, y)`` and whether it lies
+    within ``px_thresh`` of the true projection (reference
+    MultiHeadModel.py:285-315) -> ``(pred_xy [2, N], inlier [N] bool)``.
+
+    The squared distances are ``|a|^2 + |b|^2 - 2 a.b`` in the features'
+    dtype, as the JAX package computes them, one ``[chunk, H W]`` block of
+    points at a time (a KITTI sample's whole matrix is 0.84 GB in f32); the
+    nearest pixel is the first of equal distances, as ``argmin`` takes it.
+    """
+    f = pc_geo_feat.shape[-1]
+    pix = img_geo_feat.reshape(-1, f)
+    pix_sq = (pix ** 2).sum(dim=-1)[None, :]
+    min_idx = torch.cat([
+        ((a ** 2).sum(dim=-1)[:, None] + pix_sq - 2.0 * (a @ pix.T)
+         ).argmin(dim=-1)
+        for a in pc_geo_feat.split(chunk)])
+    px = (min_idx % image_w).float()
+    py = (min_idx // image_w).float()
+    err = torch.sqrt((px - point_xy_all[0]) ** 2
+                     + (py - point_xy_all[1]) ** 2)
+    inlier = (err <= px_thresh) & pc_mask
+    return torch.stack([px, py]), inlier

@@ -20,14 +20,13 @@ import torch.nn as nn
 from .config import Config
 from .data import SyntheticDataset, collate
 from .env.environment import (alignment_stats, apply_coarse_pose,
-                              bearing_init_pose, init_poses,
-                              nn_alignment_stats)
+                              bearing_init_pose, compose_disentangled,
+                              init_poses, nn_alignment_stats)
 from .env.episode import run_episode
 from .models.agent import CMRAgent
 from .models.cost_volume import IterModel, decode_topk_yaw_poses
 from .models.multi_head import MultiHeadModel
-from .ops.geometry import (make_se3, se3_inverse, to_disentangled,
-                           transform_points)
+from .ops.geometry import se3_inverse, to_disentangled, transform_points
 from .train.train_iter import iter_model_state
 
 BATCH_KEYS = ("img", "pc", "node", "pt2node", "K", "P")
@@ -241,164 +240,306 @@ def _stack(dicts: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([d[k] for d in dicts], dim=1) for k in dicts[0]}
 
 
+def candidate_stats(state_k: Dict[str, torch.Tensor], final: torch.Tensor,
+                    cfg: Config, need_ir: bool = True
+                    ) -> Dict[str, torch.Tensor]:
+    """The verification statistics ``[B]`` of the disentangled pose
+    ``final`` on a perceived state: ``alignment_stats`` and, with
+    ``need_ir`` (the whole-image nearest-pixel search is the dear half),
+    ``nn_alignment_stats``."""
+    stats = alignment_stats(state_k, final, cfg.image_h, cfg.image_w)
+    if need_ir:
+        stats.update(nn_alignment_stats(state_k, final, cfg.image_h,
+                                        cfg.image_w))
+    return stats
+
+
+def tail_iters(iter_model: IterModel, st: Dict[str, torch.Tensor],
+               iter_iters: int, iter_shrink: float = 1.0
+               ) -> Dict[str, torch.Tensor]:
+    """Cost-volume iterations ``1 .. iter_iters - 1`` from state ``st``,
+    each on the grid of the one before times ``iter_shrink``."""
+    for _ in range(1, iter_iters):
+        if iter_shrink != 1.0:
+            st = dict(st, R_amplitude=st["R_amplitude"] * iter_shrink,
+                      T_amplitude=st["T_amplitude"] * iter_shrink)
+        o = iter_model(st, with_loss=False)
+        st = dict(st, pc_i=o["pc_i"],
+                  matrix_accumulated=o["matrix_accumulated"])
+    return st
+
+
+def coarse_candidates(cfg: Config, iter_model: IterModel,
+                      st: Dict[str, torch.Tensor], hypotheses: int,
+                      iter_iters: int = 1, iter_shrink: float = 1.0):
+    """The coarse search: the first cost-volume decode's top-``hypotheses``
+    yaw candidates, each carried through the remaining ``iter_iters - 1``
+    iterations -> a list of ``hypotheses`` entangled coarse poses ``[B, 4,
+    4]`` (the accumulated matrix of each branch)."""
+    out = iter_model(st, with_loss=False)
+    cands = decode_topk_yaw_poses(out["cost_volume_logits"], st["R_amplitude"],
+                                  st["T_amplitude"], cfg.nlabel, hypotheses)
+    coarse = []
+    for k in range(hypotheses):
+        mk = cands[:, k]
+        stk = tail_iters(iter_model, dict(
+            st, pc_i=transform_points(st["pc_i"], mk[:, :3, :3],
+                                      mk[:, :3, 3]),
+            matrix_accumulated=mk @ st["matrix_accumulated"]),
+            iter_iters, iter_shrink)
+        coarse.append(stk["matrix_accumulated"])
+    return coarse
+
+
+def rank_pick(scores: torch.Tensor, rank: int) -> torch.Tensor:
+    """Each sample's rank-``rank`` candidate of ``scores [B, K]`` (1 = the
+    best). A stable sort: ties go to the lower candidate, as argsort of the
+    negated scores does in the JAX package."""
+    return torch.sort(scores, dim=1, descending=True,
+                      stable=True).indices[:, rank - 1]
+
+
 def _select(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[b, idx[b]]`` for ``x [B, K, ...]``."""
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
+def _with_combo(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Candidate-axis statistics ``[B, K]`` with ``"combo"`` added where
+    the nearest-pixel half was computed."""
+    if "ir_smooth" not in stats:
+        return stats
+    return dict(stats, combo=_combine(stats, "combo"))
+
+
+class CoarseToFine:
+    """The body of the coarse-to-fine registration pipeline, which
+    :func:`composed_pipeline` serves and the evaluation CLI
+    (``cli.test_agent``) scores against the ground truth.
+
+    Calling it on a batch runs the cost volume's coarse search over the
+    top-``hypotheses`` yaw candidates (each followed by ``iter_iters - 1``
+    further iterations, the grid shrunk by ``iter_shrink`` each time), each
+    candidate's re-perception by ``fine_geo`` (default ``geo``) and agent
+    episode, the feature-alignment verification and the selection by
+    ``hypo_score``; then, with ``refine_rounds``, that many verified rounds
+    from each member of a beam of statistic-nominated candidates
+    (``refine_beam`` entries ``"stat"`` or ``"stat:R"`` for the rank-R
+    nominee; without it the selected candidate alone), re-voted by
+    ``beam_score`` in each member's own frame or, with
+    ``beam_frame="shared"``, by every member's pose scored in every
+    member's frame.
+
+    The JAX package's two programs of this pipeline differ, and two options
+    pick one: its exported pipeline (train/export.py:177-350) accepts a
+    member's refined pose by the member's own statistic and ranks the
+    episode's observation compaction by ``pc_is_in_cam_scores``; its
+    evaluation CLI accepts by ``hypo_score`` for every member
+    (``accept_score``) and runs the episode on a state without those
+    scores (``rank_by_scores=False``: the compaction keeps index order).
+    Only the CLI has ``refine_iter``: each round first re-decodes the
+    residual with the cost volume on a grid shrunk by ``refine_shrink``.
+
+    Statistics are keys of ``alignment_stats`` / ``nn_alignment_stats`` or
+    ``"combo"``; ``need_ir`` (default: whether a statistic in use needs
+    it) computes the nearest-pixel half. ``iter_model`` may be ``None``
+    for :meth:`refine` alone. Modules in ``eval()`` mode; call under
+    ``torch.no_grad()``.
+    """
+
+    def __init__(self, cfg: Config, geo: MultiHeadModel,
+                 iter_model: Optional[IterModel], agent: CMRAgent, *,
+                 fine_geo: Optional[MultiHeadModel] = None,
+                 hypotheses: int = 1, iter_iters: int = 1,
+                 iter_shrink: float = 1.0, hypo_score: str = "smooth_mean",
+                 refine_rounds: int = 0, refine_beam: Sequence[str] = (),
+                 beam_score: Optional[str] = None, beam_frame: str = "own",
+                 accept_score: Optional[str] = None,
+                 rank_by_scores: bool = True, refine_iter: bool = False,
+                 refine_shrink: float = 0.25,
+                 need_ir: Optional[bool] = None):
+        if beam_frame not in ("own", "shared"):
+            raise ValueError(f"beam_frame must be 'own' or 'shared', got "
+                             f"{beam_frame!r}")
+        self.cfg, self.geo, self.iter_model, self.agent = (cfg, geo,
+                                                           iter_model, agent)
+        self.fine = fine_geo if fine_geo is not None else geo
+        self.hypotheses, self.iter_iters = hypotheses, iter_iters
+        self.iter_shrink, self.hypo_score = iter_shrink, hypo_score
+        self.refine_rounds, self.beam_frame = refine_rounds, beam_frame
+        self.beam_score = beam_score or hypo_score
+        self.beam_specs = tuple((s.partition(":")[0],
+                                 int(s.partition(":")[2] or 1))
+                                for s in refine_beam)
+        self.accept_score, self.rank_by_scores = accept_score, rank_by_scores
+        self.refine_iter, self.refine_shrink = refine_iter, refine_shrink
+        if need_ir is None:
+            need_ir = any(s == "combo" or s in _IR_STATS
+                          for s in (hypo_score, self.beam_score,
+                                    *(n for n, _ in self.beam_specs)))
+        self.need_ir = need_ir
+
+    def stats(self, state_k, final):
+        return candidate_stats(state_k, final, self.cfg, self.need_ir)
+
+    def episode(self, state_k):
+        """The agent's episode on a perceived state -> ``(final
+        disentangled pose [B,4,4], per-step (r_logits, t_logits))``."""
+        if not self.rank_by_scores:
+            state_k = {k: v for k, v in state_k.items()
+                       if k != "pc_is_in_cam_scores"}
+        return refine_episode(self.cfg, self.agent, state_k)
+
+    def run_fine(self, batch_k):
+        """Re-perceive the rebased problem ``batch_k`` with the fine geo
+        model and run the episode -> ``(state, final, steps)``."""
+        state_k = perceive(self.fine, batch_k)
+        return (state_k, *self.episode(state_k))
+
+    def search(self, batch) -> dict:
+        """The coarse search and the fine stage of every candidate ->
+        ``coarse`` (entangled) and ``final`` (disentangled episode
+        estimates) ``[B, K, 4, 4]``, each candidate's episode ``steps``,
+        ``stats`` ``[B, K]`` per statistic, the selection ``sel [B]`` and
+        the absolute ``poses [B, K, 4, 4]``."""
+        st = iter_model_state(self.geo(batch), batch)
+        coarse, finals, steps, stats = [], [], [], []
+        for c in coarse_candidates(self.cfg, self.iter_model, st,
+                                   self.hypotheses, self.iter_iters,
+                                   self.iter_shrink):
+            state_k, final, steps_k = self.run_fine(
+                apply_coarse_pose(batch, c))
+            coarse.append(c)
+            finals.append(final)
+            steps.append(steps_k)
+            stats.append(self.stats(state_k, final))
+        stats_mat = _with_combo(_stack(stats))
+        poses = [compose_disentangled(f, c, batch["pc"])
+                 for f, c in zip(finals, coarse)]
+        return {"coarse": torch.stack(coarse, dim=1),
+                "final": torch.stack(finals, dim=1), "steps": steps,
+                "stats": stats_mat,
+                "sel": stats_mat[self.hypo_score].argmax(dim=1),
+                "poses": torch.stack(poses, dim=1)}
+
+    def refine(self, batch, total: torch.Tensor, name: str):
+        """``refine_rounds`` verified rounds from the absolute estimate
+        ``total [B, 4, 4]``: each rebases ``batch`` under it (after the
+        ``refine_iter`` re-decode), runs the fine stage and keeps the new
+        estimate per sample only where statistic ``accept_score`` (default
+        ``name``) beats the incumbent's in the round's own frame. Returns
+        ``(pose, the kept pose's statistics [B] per key, the rounds: each
+        one's rebase ``base``, episode ``final`` and ``accept [B]``)``."""
+        accept_by = self.accept_score or name
+        eye = torch.eye(4, device=total.device).expand_as(total)
+        last, rounds = None, []
+        for _ in range(self.refine_rounds):
+            coarse_r, base = eye, total
+            if self.refine_iter:
+                batch_c = apply_coarse_pose(batch, total)
+                st = iter_model_state(self.geo(batch_c), batch_c)
+                st = dict(st, R_amplitude=st["R_amplitude"]
+                          * self.refine_shrink,
+                          T_amplitude=st["T_amplitude"] * self.refine_shrink)
+                coarse_r = self.iter_model(st, with_loss=False)[
+                    "matrix_accumulated"]
+                base = coarse_r @ total
+            batch_r = apply_coarse_pose(batch, base)
+            state_r, final_r, _ = self.run_fine(batch_r)
+            # the incumbent, seen from the round's frame
+            incumbent = to_disentangled(se3_inverse(coarse_r), batch_r["pc"])
+            s_new = self.stats(state_r, final_r)
+            s_inc = self.stats(state_r, incumbent)
+            acc = _with_combo(_stack([s_new, s_inc]))[accept_by].argmax(
+                dim=1) == 0
+            total = torch.where(acc[:, None, None], compose_disentangled(
+                final_r, base, batch["pc"]), total)
+            last = {k: torch.where(acc, s_new[k], s_inc[k]) for k in s_new}
+            rounds.append({"base": base, "final": final_r, "accept": acc})
+        return total, last, rounds
+
+    def shared_frame_stats(self, batch, poses) -> Dict[str, torch.Tensor]:
+        """Every pose of ``poses`` scored in every pose's perception frame,
+        z-scored across poses within a frame, averaged over frames ->
+        ``[B, M]`` per statistic."""
+        frames = []
+        for t_frame in poses:
+            state_f = perceive(self.fine, apply_coarse_pose(batch, t_frame))
+            inv_f = se3_inverse(t_frame)
+            frames.append(_with_combo(_stack([
+                self.stats(state_f, to_disentangled(t_pose @ inv_f,
+                                                    state_f["pc"]))
+                for t_pose in poses])))
+        return {k: torch.stack([_zscore(f[k]) for f in frames]).mean(dim=0)
+                for k in frames[0]}
+
+    def beam(self, batch, rec: dict) -> dict:
+        """Refine each beam member of the search record ``rec`` ->
+        ``members`` (each with its candidate ``idx [B]``, refined ``pose``,
+        ``stats`` and ``rounds``) and, for more than one member, the
+        re-vote's ``beam_stats [B, M]`` per statistic and ``bsel [B]``."""
+        members = []
+        for name, rank in self.beam_specs or ((self.hypo_score, 1),):
+            idx = rank_pick(rec["stats"][name], rank)
+            pose, stats, rounds = self.refine(batch, _select(rec["poses"],
+                                                             idx), name)
+            members.append({"idx": idx, "pose": pose, "stats": stats,
+                            "rounds": rounds})
+        out = {"members": members}
+        if len(members) > 1:
+            bmat = (self.shared_frame_stats(batch, [m["pose"]
+                                                    for m in members])
+                    if self.beam_frame == "shared"
+                    else _with_combo(_stack([m["stats"] for m in members])))
+            out.update(beam_stats=bmat,
+                       bsel=bmat[self.beam_score].argmax(dim=1))
+        return out
+
+    def __call__(self, batch) -> dict:
+        """:meth:`search`'s record, with :meth:`beam`'s under
+        ``refine_rounds``."""
+        rec = self.search(batch)
+        if self.refine_rounds > 0:
+            rec.update(self.beam(batch, rec))
+        return rec
+
+
 def composed_pipeline(cfg: Config, geo: MultiHeadModel, iter_model: IterModel,
-                      agent: CMRAgent, *,
-                      fine_geo: Optional[MultiHeadModel] = None,
-                      hypotheses: int = 1, iter_iters: int = 1,
-                      iter_shrink: float = 1.0,
-                      hypo_score: str = "smooth_mean",
-                      refine_rounds: int = 0,
-                      refine_beam: Sequence[str] = (),
-                      beam_score: Optional[str] = None,
-                      beam_frame: str = "own"
+                      agent: CMRAgent, **options
                       ) -> Callable[[Dict[str, torch.Tensor]],
                                     Dict[str, torch.Tensor]]:
-    """The coarse-to-fine registration pipeline as one callable: raw batch
-    -> cost-volume coarse search over the top-``hypotheses`` yaw candidates
-    (each followed by ``iter_iters - 1`` further cost-volume iterations,
-    the grid shrunk by ``iter_shrink`` each time) -> per-candidate
-    re-perception and agent episode -> feature-alignment verification ->
-    the selected absolute pose -> optionally ``refine_rounds`` verified
-    rounds (accepted per sample where the statistic improves) over a beam
-    of statistic-nominated candidates (``refine_beam`` entries ``"stat"``
-    or ``"stat:R"`` for the rank-R nominee), re-voted by ``beam_score``
-    in each member's own frame or, with ``beam_frame="shared"``, by every
-    member's pose scored in every member's frame.
-
-    The counterpart of the function inside the JAX package's
-    ``export_composed_pipeline`` (train/export.py:177-350). ``hypo_score``,
-    ``beam_score`` and the beam's statistics are keys of
-    ``alignment_stats`` / ``nn_alignment_stats`` or ``"combo"``.
-    ``fine_geo`` perceives the fine stages (default: ``geo``). All modules
-    should be in ``eval()`` mode.
+    """The coarse-to-fine registration pipeline as one callable, the
+    counterpart of the function inside the JAX package's
+    ``export_composed_pipeline`` (train/export.py:177-350): the record of
+    :class:`CoarseToFine` with ``options`` (its keyword arguments but
+    ``accept_score``, ``rank_by_scores`` and ``refine_iter``, which the
+    export lacks) reduced to what a client receives.
 
     The callable takes ``COMPOSED_KEYS`` (no ground truth) and returns
     ``pose [B,4,4]`` (absolute SE(3) taking the input cloud into camera
     alignment), ``score [B]`` (the winner's statistic) and
     ``candidate_scores [B, hypotheses]``.
     """
-    fine = fine_geo if fine_geo is not None else geo
-    beam_score = beam_score or hypo_score
-    beam_specs = tuple((s.partition(":")[0], int(s.partition(":")[2] or 1))
-                       for s in refine_beam)
-    if beam_frame not in ("own", "shared"):
-        raise ValueError(f"beam_frame must be 'own' or 'shared', got "
-                         f"{beam_frame!r}")
-    need_ir = any(s == "combo" or s in _IR_STATS
-                  for s in (hypo_score, beam_score,
-                            *(n for n, _ in beam_specs)))
-    h, w = cfg.image_h, cfg.image_w
-
-    def cand_stats(state_k, final):
-        stats = alignment_stats(state_k, final, h, w)
-        if need_ir:   # the whole-image nearest-pixel search is the dear half
-            stats.update(nn_alignment_stats(state_k, final, h, w))
-        return stats
-
-    def run_fine(batch_k):
-        return fine_stage(cfg, fine, agent, batch_k)
-
-    def entangle_and_compose(state_k, final, coarse):
-        """Absolute pose = entangled episode estimate after the coarse
-        rebase (``t_abs = t + mu - R mu``)."""
-        mu = state_k["pc"].float().mean(dim=1)
-        Rf, tf = final[..., :3, :3].float(), final[..., :3, 3].float()
-        t_abs = tf + mu - torch.einsum("bij,bj->bi", Rf, mu)
-        return make_se3(Rf, t_abs) @ coarse
-
-    def tail_iters(stk):
-        for _ in range(1, iter_iters):
-            if iter_shrink != 1.0:
-                stk = dict(stk, R_amplitude=stk["R_amplitude"] * iter_shrink,
-                           T_amplitude=stk["T_amplitude"] * iter_shrink)
-            o = iter_model(stk, with_loss=False)
-            stk = dict(stk, pc_i=o["pc_i"],
-                       matrix_accumulated=o["matrix_accumulated"])
-        return stk
-
-    def refine(batch, total, name):
-        """``refine_rounds`` verified rounds from estimate ``total``,
-        accepted per sample only where statistic ``name`` improves in the
-        round's perception frame -> ``(pose, accepted stats)``."""
-        eye = torch.eye(4, device=total.device).expand_as(total)
-        last = None
-        for _ in range(refine_rounds):
-            state_m, final_m = run_fine(apply_coarse_pose(batch, total))
-            cand_total = entangle_and_compose(state_m, final_m, total)
-            s_new = cand_stats(state_m, final_m)
-            s_inc = cand_stats(state_m, eye)   # the incumbent is identity here
-            acc = _combine(_stack([s_new, s_inc]), name).argmax(dim=1) == 0
-            total = torch.where(acc[:, None, None], cand_total, total)
-            last = {k: torch.where(acc, s_new[k], s_inc[k]) for k in s_new}
-        return total, last
-
-    def shared_frame_scores(batch, m_poses):
-        """Every member's absolute pose scored in every member's perception
-        frame, z-scored across poses within a frame, averaged over frames."""
-        frame_scores = []
-        for t_frame in m_poses:
-            state_f = perceive(fine, apply_coarse_pose(batch, t_frame))
-            inv_f = se3_inverse(t_frame)
-            per_pose = [cand_stats(state_f, to_disentangled(t_pose @ inv_f,
-                                                            state_f["pc"]))
-                        for t_pose in m_poses]
-            frame_scores.append(_zscore(_combine(_stack(per_pose),
-                                                 beam_score)))
-        return sum(frame_scores) / len(frame_scores)
+    body = CoarseToFine(cfg, geo, iter_model, agent, **options)
 
     @torch.no_grad()
     def pipeline(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        batch = {k: batch[k] for k in COMPOSED_KEYS}
-        st = iter_model_state(geo(batch), batch)
-        out = iter_model(st, with_loss=False)
-        cands = decode_topk_yaw_poses(
-            out["cost_volume_logits"], st["R_amplitude"], st["T_amplitude"],
-            cfg.nlabel, hypotheses)
-        poses, stat_list = [], []
-        for k in range(hypotheses):
-            mk = cands[:, k]
-            stk = tail_iters(dict(
-                st, pc_i=transform_points(st["pc_i"], mk[:, :3, :3],
-                                          mk[:, :3, 3]),
-                matrix_accumulated=mk @ st["matrix_accumulated"]))
-            coarse = stk["matrix_accumulated"]
-            state_k, final = run_fine(apply_coarse_pose(batch, coarse))
-            poses.append(entangle_and_compose(state_k, final, coarse))
-            stat_list.append(cand_stats(state_k, final))
-        stats_mat = _stack(stat_list)                           # [B, K] each
-        scores = _combine(stats_mat, hypo_score)
-        poses = torch.stack(poses, dim=1)                       # [B, K, 4, 4]
-        sel = scores.argmax(dim=1)
-        pose, score = _select(poses, sel), _select(scores, sel)
-        if refine_rounds > 0:
-            m_poses, m_stats = [], []
-            for name, rank in beam_specs or ((hypo_score, 1),):
-                sc = _combine(stats_mat, name)
-                # a stable sort: ties go to the lower candidate, as argsort
-                # of the negated scores does in the JAX package
-                idx = torch.sort(sc, dim=1, descending=True, stable=True
-                                 ).indices[:, rank - 1]
-                total_m, last = refine(batch, _select(poses, idx), name)
-                m_poses.append(total_m)
-                m_stats.append(last)
-            if len(m_poses) > 1:
-                bscore = (shared_frame_scores(batch, m_poses)
-                          if beam_frame == "shared"
-                          else _combine(_stack(m_stats), beam_score))
-                bsel = bscore.argmax(dim=1)
-                pose = _select(torch.stack(m_poses, dim=1), bsel)
-                score = _select(bscore, bsel)
-            else:
-                pose = m_poses[0]
-                # combo is a cross-candidate z-score, meaningless for one
-                # member: report the accepted smooth_mean then
-                score = m_stats[0]["smooth_mean" if hypo_score == "combo"
-                                   else hypo_score]
+        rec = body({k: batch[k] for k in COMPOSED_KEYS})
+        scores = rec["stats"][body.hypo_score]
+        if "bsel" in rec:
+            pose = _select(torch.stack([m["pose"] for m in rec["members"]],
+                                       dim=1), rec["bsel"])
+            score = _select(rec["beam_stats"][body.beam_score], rec["bsel"])
+        elif "members" in rec:
+            pose = rec["members"][0]["pose"]
+            # combo is a cross-candidate z-score, meaningless for one
+            # member: report the accepted smooth_mean then
+            score = rec["members"][0]["stats"][
+                "smooth_mean" if body.hypo_score == "combo"
+                else body.hypo_score]
+        else:
+            pose = _select(rec["poses"], rec["sel"])
+            score = _select(scores, rec["sel"])
         return {"pose": pose, "score": score, "candidate_scores": scores}
 
     return pipeline
