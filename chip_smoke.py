@@ -10,6 +10,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase compact_pack           # kernels 11 and 8
     python3 chip_smoke.py --phase factored               # kernel 6b
     python3 chip_smoke.py --phase eval                   # the E7 evaluation
+    python3 chip_smoke.py --phase export                 # the serving export
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -155,7 +156,29 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     and its launches (8 times one batch's), beside the JAX package's
     published accuracy (``[eval_agent]``), and the per-scene ``--save-mat``
     fields as one JSON line (``[eval_scenes]``); then ``cli.test_geo`` on 8
-    scenes of the split in f32 (``[eval_geo]``).
+    scenes of the split in f32 (``[eval_geo]``);
+19. the serving export (``train/export.py``; also alone with ``--phase
+    export``, which adds the composed pipeline at the E7 options on the
+    trained weights in bf16 + int8 at E7's K = 13 hypotheses,
+    ``--hypotheses`` another): the geo forward and the episode of phase 4's
+    workload in f32, in bf16 + int8 and under ``fused_stacks`` "all" (bf16
+    + int8), each workload exported on the card by a process of its own
+    (``--export-worker``), while a fresh process that imports ``torch`` and
+    the port only loads each artifact as it is written; once all of that
+    untimed work is done (``[export_untimed]``), each exporter in turn,
+    alone on the card and the host: the export's and the load's seconds,
+    the artifact's bytes and nodes, its ``cmr::`` nodes, which must equal
+    the launches of one eager run of the traced body, its plain-version
+    nodes and its tensors made from host data, none of either
+    (``[export]``); the loaded artifact captured as one CUDA graph (the
+    memory its pool reserved) and replayed, bit-equal to the traced body
+    (``[export_twin]``); per workload, its rate eager and captured in turns
+    (eager, captured, captured, eager), then one uncaptured run of the
+    loaded module, each with the device's busy share and peak memory
+    (``[captured]``); the geo forward replayed again after the episode was
+    captured, bit-equal (``[export_replay]``); last the fresh process calls
+    each artifact on the exporters' inputs, bit-equal to their replays, and
+    the first again after every later capture (``[export_load]``).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -3379,16 +3402,439 @@ def run_eval(torch, kernels, dev) -> None:
     run_eval_geo(torch, kernels, dev)
 
 
+EXPORT_DIR = "build/export"
+# phase 4's workload (geo forward + episode) under these settings
+EXPORT_PAIRS = (("f32", dict(compute_dtype="float32")),
+                ("bf16", dict(compute_dtype="bfloat16")),
+                ("fused_bf16", dict(compute_dtype="bfloat16",
+                                    fused_stacks="all")))
+# a fresh process that imports torch and the port only, with the
+# exporting processes' matmul and cuDNN settings (TF32 off: an artifact's
+# f32 convolutions follow the calling process's): it loads each artifact
+# as its exporter writes it, writes the file "loaded", waits for the
+# exporters' inputs and replays (the file "go"), then calls each artifact
+# twice (its CUDA graph captured at the first call) and holds the replays
+# to theirs, calls the first artifact again after every later capture;
+# then the foreign modules it imported
+EXPORT_LOAD_SCRIPT = r"""
+import json, os, sys, time
+import torch
+from torch.utils import _pytree
+from cmr_agent_tpu_torch.train.export import load_exported
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+d, names = sys.argv[1], sys.argv[2:]
+
+
+def wait(path):
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > 3600:
+            sys.exit("no " + path)
+        time.sleep(0.5)
+
+
+def leaves(tree):
+    return _pytree.tree_leaves(tree)
+
+
+programs = {}
+for name in names:
+    wait(os.path.join(d, name + ".pt2"))
+    t0 = time.perf_counter()
+    programs[name] = load_exported(os.path.join(d, name + ".pt2"))
+    print(json.dumps(dict(artifact=name,
+                          load_s=round(time.perf_counter() - t0, 3))),
+          flush=True)
+open(os.path.join(d, "loaded"), "w").close()
+wait(os.path.join(d, "go"))
+inputs, firsts = {}, {}
+for name in names:
+    path = os.path.join(d, name)
+    inputs[name] = torch.load(path + ".inputs.pt", map_location="cuda")
+    want = torch.load(path + ".outputs.pt", map_location="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = programs[name].call(inputs[name])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = programs[name].call(inputs[name])
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    firsts[name] = got
+    pairs = list(zip(leaves(got), leaves(want)))
+    print(json.dumps(dict(
+        artifact=name, first_call_s=round(first_s, 3),
+        replay_s=round(replay_s, 4),
+        finite=all(bool(torch.isfinite(g.float()).all()) for g, _ in pairs),
+        same_bits=all(torch.equal(g, w) for g, w in pairs),
+        max_abs_diff=max((g.float() - w.float()).abs().max().item()
+                         for g, w in pairs),
+        replays_equal=all(torch.equal(a, g) for a, g in zip(
+            leaves(again), leaves(got))))), flush=True)
+first = names[0]
+print(json.dumps(dict(first_after_later_captures=first,
+                      captured_after=len(names) - 1, same_bits=all(
+                          torch.equal(a, g) for a, g in zip(
+                              leaves(programs[first].call(inputs[first])),
+                              leaves(firsts[first]))))), flush=True)
+print(json.dumps(dict(foreign_modules=sorted(
+    m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "orbax", "cmr_agent_tpu")))), flush=True)
+"""
+
+
+def geo_state(geo_out, batch):
+    """The episode artifact's inputs: the geo forward's outputs, the
+    batch's cloud (the geo forward passes it through) and camera."""
+    from cmr_agent_tpu_torch.train.export import EPISODE_KEYS
+    state = {k: geo_out[k] for k in EPISODE_KEYS if k in geo_out}
+    state.update(pc=batch["pc"], K=batch["K"])
+    return state
+
+
+def e7_composed(torch, dev, hypotheses: int):
+    """E7's modules at the committed trained weights (as ``cli.test_agent``
+    loads them), its first test batch (8 scenes, ``serve.COMPOSED_KEYS``)
+    and the composed pipeline's options at ``hypotheses`` candidates:
+    ``(cfg, (geo, iter_model, agent), inputs, options)``."""
+    import argparse
+    from cmr_agent_tpu_torch import serve
+    from cmr_agent_tpu_torch.cli import common, test_agent
+    from cmr_agent_tpu_torch.models.agent import CMRAgent
+    from cmr_agent_tpu_torch.models.cost_volume import IterModel
+    args = test_agent.parser().parse_args(e7_argv(dev, "--synthetic-length",
+                                                  "8"))
+    cfg = common.apply_obs_overrides(common.build_config(args), args)
+    geo = common.load_geo_variables(cfg, args, dev)
+    fine = common.load_geo_variables(
+        cfg, argparse.Namespace(geo_ckpt=args.fine_geo_ckpt), dev)
+    agent = common.load_model(cfg, CMRAgent(cfg), args.agent_ckpt, "agent",
+                              "agent", dev)
+    iter_model = common.load_model(cfg, IterModel(cfg), args.iter_ckpt,
+                                   "itermodel", "iter", dev)
+    loader = common.make_loader(cfg, args,
+                                common.build_dataset(cfg, args, "test"),
+                                batch_size=args.eval_batch_size)
+    batch = common.to_device(next(iter(loader)), dev)
+    options = dict(fine_geo=fine, hypotheses=hypotheses,
+                   iter_iters=args.iter_iters, iter_shrink=args.iter_shrink,
+                   hypo_score=args.hypo_score,
+                   refine_rounds=args.refine_rounds,
+                   refine_beam=tuple(args.refine_beam.split(",")),
+                   beam_score=args.beam_score or None,
+                   beam_frame=args.beam_frame)
+    return (cfg, (geo, iter_model, agent),
+            {k: batch[k] for k in serve.COMPOSED_KEYS}, options)
+
+
+def export_labels(hypotheses) -> list:
+    """The exporters of phase 19: one per ``EXPORT_PAIRS`` workload, and
+    "composed" when ``hypotheses`` is given."""
+    return [label for label, _ in EXPORT_PAIRS] + (
+        ["composed"] if hypotheses else [])
+
+
+def artifact_names(label: str, hypotheses) -> list:
+    return ([f"composed_k{hypotheses}_bf16"] if label == "composed"
+            else [f"geo_{label}", f"episode_{label}"])
+
+
+def export_path(torch, serve, export, kitti_config, dev, label: str,
+                hypotheses):
+    """What the exporter ``label`` serves: ``(path label, [(artifact name,
+    export call, traced body, inputs)], (eager, pairs a call, unit))``;
+    an ``EXPORT_PAIRS`` label the geo forward and the episode of
+    that workload (the episode's inputs from one eager geo forward),
+    "composed" the composed pipeline at the E7 options on the trained
+    weights (bf16 + int8) at ``hypotheses`` candidates."""
+    if label == "composed":
+        cfg, mods, inputs, opts = e7_composed(torch, dev, hypotheses)
+        pipeline = serve.composed_pipeline(cfg, *mods, **opts)
+        name, = artifact_names(label, hypotheses)
+        return (name, [(name, lambda: export.export_composed_pipeline(
+            cfg, *mods, inputs, **opts), pipeline, inputs)],
+            (lambda: pipeline(inputs), 1, "requests"))
+    cfg = kitti_config(**dict(EXPORT_PAIRS)[label])
+    batch, model, agent, _ = serve.build_workload(cfg, B, seed=0)
+    geo_body = export.geo_forward_body(model)
+    ep_body = export.episode_body(cfg, agent)
+    with torch.no_grad():
+        state = geo_state(geo_body(batch), batch)
+
+    def eager():
+        with torch.no_grad():
+            return ep_body(geo_state(geo_body(batch), batch))
+
+    geo_name, ep_name = artifact_names(label, hypotheses)
+    return (f"geo+episode[{label}]", [
+        (geo_name, lambda: export.export_geo_forward(cfg, model, batch),
+         geo_body, batch),
+        (ep_name, lambda: export.export_episode(cfg, agent, state), ep_body,
+         state)], (eager, B, "pairs"))
+
+
+def hold_export(torch, kernels, name: str, made: dict, loaded, body,
+                inputs):
+    """``[export]``: the artifact's export and load seconds and bytes, its
+    nodes and ``cmr::`` nodes, which must equal the launches of one eager
+    run of the traced ``body`` on ``inputs``, no node of a plain version
+    and no tensor made from host data. Returns the eager outputs."""
+    from cmr_agent_tpu_torch.train import export
+    nodes = export.kernel_nodes(loaded)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        want = body(inputs)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    plain = loaded.meta["plain_nodes"]
+    host = export.host_data_nodes(loaded)
+    line("export", artifact=name, export_s=f"{made['export_s']:.2f}",
+         bytes=made["bytes"], load_s=f"{made['load_s']:.2f}",
+         nodes=len(loaded.program.graph.nodes), plain_nodes=plain,
+         host_data_nodes=host, equal_to_eager_launches=nodes == launched,
+         **{f"cmr_{k}": v for k, v in sorted(nodes.items())})
+    assert nodes == launched, (name, nodes, launched)
+    assert plain == 0 and host == 0, (name, plain, host)
+    return want
+
+
+def hold_twin(torch, name: str, loaded, inputs, want) -> dict:
+    """``[export_twin]``: the loaded artifact captured (its graph pool: the
+    memory the capture reserved) and replayed against the traced body's
+    eager run on the same inputs: the same kernels in the same order, so
+    the same bits. Returns the replay's outputs."""
+    from torch.utils import _pytree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    loaded.call(inputs)                                     # the capture
+    torch.cuda.synchronize()
+    pool = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    got = loaded.call(inputs)
+    leaves = list(zip(_pytree.tree_leaves(got), _pytree.tree_leaves(want)))
+    same = all(torch.equal(g, w) for g, w in leaves)
+    diff = max((g.float() - w.float()).abs().max().item() for g, w in leaves)
+    line("export_twin", artifact=name, same_bits=same, max_abs_diff=diff,
+         graph_pool_gib=f"{pool:.3f}")
+    assert same, (name, "replay differs from the traced body", diff)
+    return got
+
+
+def captured_turns(torch, label: str, eager, captured, uncaptured,
+                   pairs: int, unit: str = "pairs", calls: int = 3) -> None:
+    """``[captured]``: ``unit``/s (``pairs`` a call) of ``eager`` and
+    ``captured`` in turns (eager, captured, captured, eager; ``calls``
+    timed calls a turn), then of one ``uncaptured`` run of the loaded
+    module (the export without the graph), each with its device time
+    (``profile_device``) over its median call's wall time (the busy share;
+    and over the profiled call's) and the peak memory allocated in the
+    call (a captured call's graph pool is ``[export_twin]``'s)."""
+    fns = {"eager": eager, "captured": captured, "uncaptured": uncaptured}
+    rates = {k: [] for k in fns}
+    for turn in ("eager", "captured", "captured", "eager", "uncaptured"):
+        for _ in range(1 if turn == "uncaptured" else calls):
+            rates[turn].append(pairs / timed(torch, fns[turn])[1])
+    for kind, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows, wall_ms = profile_device(fn)
+        device_ms = sum(ms for ms, _ in rows.values())
+        rate = statistics.median(rates[kind])
+        line("captured", path=label, run=kind,
+             **{f"{unit}_per_s": f"{rate:.3f}"},
+             rates=",".join(f"{r:.3f}" for r in rates[kind]),
+             device_ms=f"{device_ms:.3f}",
+             device_busy_share=(f"{device_ms / (1e3 * pairs / rate):.3f}"
+                                if device_ms else "not measured"),
+             profiled_wall_ms=f"{wall_ms:.3f}",
+             profiled_busy_share=(f"{device_ms / wall_ms:.3f}" if device_ms
+                                  else "not measured"),
+             peak_gib=f"{peak:.3f}")
+
+
+def wait_for(path: str, timeout: float, proc=None) -> None:
+    """Until the file ``path`` exists; raises if ``proc`` exits first or
+    ``timeout`` seconds pass."""
+    import os
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"process exited ({proc.returncode}) before "
+                               f"{path}")
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout:.0f} s")
+        time.sleep(0.5)
+
+
+def export_worker(torch, kernels, serve, kitti_config, dev, label: str,
+                  hypotheses) -> None:
+    """Phase 19 for the exporter ``label`` (``export_path``), in a process
+    of its own (``--export-worker``): it exports each artifact to
+    ``EXPORT_DIR`` and loads it back while the other exporters and the
+    fresh process do the same (untimed work; no kernel runs in a trace or
+    a load), then writes ``<label>.ready`` and waits for ``<label>.go``,
+    which phase 19 gives each exporter in turn; then, alone on the card
+    and the host, per artifact ``[export]`` and ``[export_twin]``,
+    ``[captured]``, and the first artifact replayed after the second was
+    captured (its kernels' scratch is its own, ``[export_replay]``); each
+    artifact's inputs and replay go to ``EXPORT_DIR`` for the fresh
+    process."""
+    import os
+    from torch.utils import _pytree
+    from cmr_agent_tpu_torch.train import export
+    path_label, artifacts, (eager, pairs, unit) = export_path(
+        torch, serve, export, kitti_config, dev, label, hypotheses)
+    made, loaded = {}, {}
+    for name, export_call, _, _ in artifacts:
+        path = os.path.join(EXPORT_DIR, name)
+        t0 = time.perf_counter()
+        blob = export_call()
+        export_s = time.perf_counter() - t0
+        with open(path + ".part", "wb") as f:
+            f.write(blob)
+        os.replace(path + ".part", path + ".pt2")   # whole for the loader
+        t0 = time.perf_counter()
+        loaded[name] = export.load_exported(path + ".pt2")
+        made[name] = dict(export_s=export_s, bytes=len(blob),
+                          load_s=time.perf_counter() - t0)
+        del blob
+    with open(os.path.join(EXPORT_DIR, f"{label}.ready"), "w"):
+        pass
+    wait_for(os.path.join(EXPORT_DIR, f"{label}.go"), 3600)
+    replays = []
+    for name, _, body, inputs in artifacts:
+        want = hold_export(torch, kernels, name, made[name], loaded[name],
+                           body, inputs)
+        got = hold_twin(torch, name, loaded[name], inputs, want)
+        replays.append((name, inputs, got))
+    # the path's artifacts in turn (geo forward, then episode)
+    progs = [loaded[name] for name, _, _, _ in artifacts]
+    x = artifacts[0][3]
+
+    def through(call):
+        if len(progs) == 1:
+            return call(progs[0], x)
+        return call(progs[1], geo_state(call(progs[0], x), x))
+
+    captured_turns(torch, path_label, eager,
+                   lambda: through(export.LoadedProgram.call),
+                   lambda: through(export.LoadedProgram.run), pairs, unit,
+                   calls=3 if unit == "pairs" else 1)
+    if len(replays) > 1:
+        name, inputs, first_out = replays[0]
+        again = loaded[name].call(inputs)
+        same = all(torch.equal(a, b) for a, b in zip(
+            _pytree.tree_leaves(again), _pytree.tree_leaves(first_out)))
+        line("export_replay", artifact=name,
+             captured_after=len(replays) - 1, same_bits=same)
+        assert same, "a later capture changed the first artifact's replay"
+    for name, inputs, out in replays:
+        path = os.path.join(EXPORT_DIR, name)
+        torch.save({k: v.cpu() for k, v in inputs.items()},
+                   path + ".inputs.pt")
+        torch.save(_pytree.tree_map(lambda t: t.cpu(), out),
+                   path + ".outputs.pt")
+
+
+def stop(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_export(torch, hypotheses=None) -> None:
+    """Phase 19: the serving export (``train/export.py``) on the card. One
+    exporter process per ``export_labels`` (see ``export_worker``) and a
+    fresh process that imports ``torch`` and the port only start together
+    and export and load side by side (untimed: ``[export_untimed]``). Then,
+    with nothing else running, each exporter in turn times and checks its
+    artifacts (its lines relayed here), and last the fresh process calls
+    each artifact on the exporters' inputs against their replays
+    (``[export_load]``)."""
+    import os
+    import shutil
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    here = os.path.dirname(os.path.abspath(__file__))
+    labels = export_labels(hypotheses)
+    names = [n for label in labels for n in artifact_names(label, hypotheses)]
+    workers, procs = [], []
+    try:
+        for label in labels:
+            log = os.path.join(EXPORT_DIR, f"worker_{label}.log")
+            argv = [sys.executable, os.path.join(here, "chip_smoke.py"),
+                    "--export-worker", label]
+            if hypotheses:
+                argv += ["--hypotheses", str(hypotheses)]
+            with open(log, "w") as out:
+                proc = subprocess.Popen(argv, cwd=here, stdout=out,
+                                        stderr=subprocess.STDOUT)
+            procs.append(proc)
+            workers.append((label, proc, log))
+        loader_log = os.path.join(EXPORT_DIR, "loader")
+        with open(loader_log + ".out", "w") as out, \
+                open(loader_log + ".err", "w") as err:
+            loader = subprocess.Popen(
+                [sys.executable, "-c", EXPORT_LOAD_SCRIPT, EXPORT_DIR,
+                 *names], cwd=here, stdout=out, stderr=err)
+        procs.append(loader)
+        for label, proc, _ in workers:
+            wait_for(os.path.join(EXPORT_DIR, f"{label}.ready"), 3600, proc)
+        wait_for(os.path.join(EXPORT_DIR, "loaded"), 3600, loader)
+        line("export_untimed", processes=len(procs),
+             seconds=f"{time.perf_counter() - t_phase:.1f}")
+        for label, proc, log in workers:
+            with open(os.path.join(EXPORT_DIR, f"{label}.go"), "w"):
+                pass
+            rc = proc.wait(timeout=1800)
+            text = open(log).read()
+            for s in text.splitlines():
+                if s.startswith("["):
+                    print(s, flush=True)
+            assert rc == 0, f"exporter {label} exited {rc}:\n{text[-3000:]}"
+        with open(os.path.join(EXPORT_DIR, "go"), "w"):
+            pass
+        t0 = time.perf_counter()
+        rc = loader.wait(timeout=1800)
+    finally:
+        stop(procs)
+    out = open(loader_log + ".out").read()
+    assert rc == 0, open(loader_log + ".err").read()[-3000:]
+    rows = [json.loads(s) for s in out.splitlines() if s.startswith("{")]
+    loads = {r["artifact"]: r["load_s"] for r in rows if "load_s" in r}
+    calls = [r for r in rows if "first_call_s" in r]
+    for row in calls:
+        line("export_load", load_s=loads[row["artifact"]], **row)
+        assert row["finite"] and row["same_bits"] and \
+            row["replays_equal"], row
+    again = next(r for r in rows if "first_after_later_captures" in r)
+    line("export_load", **again)
+    assert again["same_bits"], again
+    foreign = rows[-1]["foreign_modules"]
+    line("export_load", calls_s=f"{time.perf_counter() - t0:.1f}",
+         artifacts=len(calls), foreign_modules=foreign)
+    assert not foreign and len(calls) == len(names), rows
+    line("export_phase", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
-              repeat: int) -> int:
+              repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
     twins' gradients and losses, without the timed steps), "segment_sums"
     the gates and times of kernels 5 and 7 from phases 5 and 8, "chains"
     phase 12, "knn_raster" phase 16 (kernels 3 and 4), "softmax_image"
     phase 17 (kernels 1 and 6a), "compact_pack" kernels 11 and 8 from
     phases 8 and 14, "factored" kernel 6b and the raster probes from phase
-    15, "eval" phase 18 (the E7 evaluation). Returns the number of repeats that failed their
-    gate."""
+    15, "eval" phase 18 (the E7 evaluation), "export" phase 19 (the
+    composed artifact at ``hypotheses`` candidates). Returns the number of
+    repeats that failed their gate."""
     failed = 0
     if phase == "segment_sums":
         geo_calls = geo_step_segment_calls(torch, kernels, serve, kitti_config,
@@ -3412,6 +3858,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_raster_probes(torch, kernels, run_tool)
             elif phase == "eval":
                 run_eval(torch, kernels, dev)
+            elif phase == "export":
+                run_export(torch, hypotheses)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -3433,17 +3881,22 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval [--repeat N]``
+    factored|eval|export [--repeat N] [--hypotheses K]``
     builds the kernels and runs that one phase N times instead (exit code 1
-    if any repeat failed its gate)."""
+    if any repeat failed its gate); ``--hypotheses`` is the composed
+    artifact's K under ``--phase export`` (13, E7's)."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
-                             "factored", "eval"),
+                             "factored", "eval", "export"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--hypotheses", type=int, default=13)
+    ap.add_argument("--export-worker",
+                    choices=export_labels(True),
+                    help="one exporter of phase 19, which starts them")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3456,6 +3909,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if opts.export_worker:
+        export_worker(torch, kernels, serve, kitti_config, dev,
+                      opts.export_worker, opts.hypotheses)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3475,7 +3932,7 @@ def main(argv=None) -> int:
                     SEGMENT_SUM_SHARED_KERNEL_NAMES, int_template)
     if opts.phase != "all":
         failed = run_phase(torch, kernels, serve, kitti_config, dev,
-                           opts.phase, opts.repeat)
+                           opts.phase, opts.repeat, opts.hypotheses)
         print(smi, flush=True)
         return 1 if failed else 0
 
@@ -3538,6 +3995,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_eval(torch, kernels, dev)
     line("twelfth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_export(torch)
+    line("thirteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
     # agent training run, one composed request, the "pack" episode, the

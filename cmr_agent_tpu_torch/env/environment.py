@@ -306,7 +306,7 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
                 in_cam[..., None].to(pc.dtype)]
     if bearing_channels:
         w = overlap.to(pc.dtype)[..., None]
-        cxz = ((moved[..., (0, 2)] * w).sum(dim=1)
+        cxz = ((moved[..., 0::2] * w).sum(dim=1)                   # x, z
                / w.sum(dim=1).clamp_min(1.0))                      # [B, 2]
         unit = cxz / (torch.linalg.norm(cxz, dim=-1, keepdim=True) + 1e-6)
         channels.append(unit[:, None, :].expand(-1, pc.shape[1], -1)

@@ -28,6 +28,18 @@ def raster_dtype_for(cfg: Config, training: bool = False
     return torch.int8 if cfg.raster_int8 and not training else torch.bfloat16
 
 
+def step_tables(cfg: Config, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rotation (radians) and translation step tables, f32, made on
+    ``device`` from the config's scalars by fill operations: no copy from
+    the host, so a traced episode holds them as device operations, which a
+    CUDA graph captures."""
+    def table(values):
+        return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                       device=device)
+                            for v in values])
+    return table(cfg.r_steps_array()), table(cfg.t_steps_array())
+
+
 def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
                 raster_topk: Optional[int] = None, *,
                 pose_target: Optional[torch.Tensor] = None,
@@ -78,8 +90,7 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     ``action_logprob`` and ``entropy [K,B,3]``.
     """
     device = pose_init.device
-    r_steps = torch.as_tensor(cfg.r_steps_array(), device=device)
-    t_steps = torch.as_tensor(cfg.t_steps_array(), device=device)
+    r_steps, t_steps = step_tables(cfg, device)
     if expert_beta is not None and not with_expert:
         raise ValueError("expert_beta needs with_expert=True")
     projected = cfg.raster_mode in PROJECTED_MODES

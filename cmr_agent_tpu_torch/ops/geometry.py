@@ -64,7 +64,7 @@ def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = R.new_zeros(R.shape[:-2] + (4, 4))
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)
     return T
 
 

@@ -42,6 +42,16 @@ chain kernel forward and differentiates the plain chain backward, as the
 JAX package's chain VJP differentiates its pure-jnp mirror. They look the
 wrappers up at call time, so swapping a wrapper for its plain version
 (``PLAIN``) swaps it in both directions.
+
+Operators: every forward wrapper but the chain's packing does its work
+through one PyTorch operator of the ``cmr`` namespace, named as the
+wrapper (``torch.ops.cmr.segment_softmax_attend``, ...; :data:`OPERATORS`).
+The dispatcher sends CUDA tensors to the launch (which counts it) and CPU
+tensors to the plain version; the fake implementation gives the outputs'
+shapes and dtypes and raises, on CUDA tensors, what the launch refuses
+before it reaches the card. So ``torch.export`` keeps each kernel as one
+node of its graph (``train/export.py``), and a CUDA graph captures the
+launch. Registering them needs neither a card nor ``nvcc``.
 """
 
 from __future__ import annotations
@@ -201,17 +211,44 @@ def segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
     and writes ``out``, ``sums`` and ``gmax`` once each, every segment's
     rows added in ascending order in fixed pieces: the same bits on every
     run, and ``return_stats`` costs nothing."""
+    out, sums, gmax = OPERATORS["segment_softmax_attend"](
+        attn, values, idx, int(num_segments))
+    return (out, sums, gmax) if return_stats else out
+
+
+segment_softmax_attend.launches = 0
+
+# M past 65535 does not fit the bucketing's 16-bit segment ids (kernels 1,
+# 5 and 7), nor more than 65536 rows kernel 7's
+MAX_SEGMENTS = 65535
+
+
+def _refuse_segments(fn_name: str, m: int) -> None:
+    """Raises as the launch of ``fn_name`` refuses ``m`` past
+    :data:`MAX_SEGMENTS` (the kernel's -1)."""
+    if m > MAX_SEGMENTS:
+        raise RuntimeError(f"{fn_name} failed: {_REFUSALS[-1]} (-1): "
+                           f"num_segments {m} > {MAX_SEGMENTS}")
+
+
+def _check_segment_softmax_attend(attn, values, idx, m: int) -> None:
+    """Raises what the launch refuses, on CUDA tensors (the plain version
+    takes any CPU ones)."""
     if not _on_cuda(attn, values, idx):
-        return segment_softmax_attend_plain(attn, values, idx, num_segments,
-                                            return_stats)
+        return
     b, n, f = attn.shape
-    m = int(num_segments)
     _require("attn", attn, (torch.float32, torch.bfloat16), (b, n, f))
     _require("values", values, (attn.dtype,), (b, n, f))
     _require("idx", idx, (torch.int32,), (b, n))
     if min(m, n, f) < 1:
         raise ValueError(f"segment softmax kernel needs N, F and "
                          f"num_segments >= 1; got N={n}, F={f}, M={m}")
+    _refuse_segments("cmr_segment_softmax_attend", m)
+
+
+def _segment_softmax_attend_cuda(attn, values, idx, m: int):
+    _check_segment_softmax_attend(attn, values, idx, m)
+    b, n, f = attn.shape
     dev = attn.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch(_segment_softmax_scratch_bytes(b, n, m, f), dev,
@@ -224,10 +261,16 @@ def segment_softmax_attend(attn: torch.Tensor, values: torch.Tensor,
             _ptr(gmax), _ptr(sums), _ptr(out), b, n, m, f,
             ctypes.c_void_p(stream))
     segment_softmax_attend.launches += 1
-    return (out, sums, gmax) if return_stats else out
+    return out, sums, gmax
 
 
-segment_softmax_attend.launches = 0
+def _segment_softmax_attend_fake(attn, values, idx, m: int):
+    _check_segment_softmax_attend(attn, values, idx, m)
+    b, n, f = attn.shape
+    dt = torch.promote_types(attn.dtype, torch.float32)
+    return (attn.new_empty((b, m, f), dtype=dt),
+            attn.new_empty((b, m, f), dtype=dt),
+            attn.new_empty((b, f), dtype=dt))
 
 
 # --------------------------------------------------------------------------
@@ -247,12 +290,26 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper of :func:`gather_rows_plain`: f32 or bf16 ``table``,
     int32 ``idx``."""
+    return OPERATORS["gather_rows"](table, idx)
+
+
+def _check_gather_rows(table, idx) -> None:
     if not _on_cuda(table, idx):
-        return gather_rows_plain(table, idx)
+        return
+    b, m, f = table.shape
+    _require("table", table, (torch.float32, torch.bfloat16), (b, m, f))
+    _require("idx", idx, (torch.int32,), (b, idx.shape[1]))
+
+
+def _gather_rows_fake(table, idx):
+    _check_gather_rows(table, idx)
+    return table.new_empty((table.shape[0], idx.shape[1], table.shape[2]))
+
+
+def _gather_rows_cuda(table, idx):
+    _check_gather_rows(table, idx)
     b, m, f = table.shape
     n = idx.shape[1]
-    _require("table", table, (torch.float32, torch.bfloat16), (b, m, f))
-    _require("idx", idx, (torch.int32,), (b, n))
     out = torch.empty((b, n, f), dtype=table.dtype, device=table.device)
     row_bytes = f * table.element_size()
     chunk = next(c for c in (16, 4, 2)
@@ -292,15 +349,30 @@ def knn_plain(xyz: torch.Tensor, query: torch.Tensor, k: int) -> torch.Tensor:
 def knn(xyz: torch.Tensor, query: torch.Tensor, k: int) -> torch.Tensor:
     """Kernel wrapper of :func:`knn_plain`: f32, ``k <= 32``,
     ``N <= 4096``."""
+    return OPERATORS["knn"](xyz, query, int(k))
+
+
+def _check_knn(xyz, query, k: int) -> None:
     if not _on_cuda(xyz, query):
-        return knn_plain(xyz, query, k)
+        return
     b, n, _ = xyz.shape
-    m = query.shape[1]
     _require("xyz", xyz, (torch.float32,), (b, n, 3))
-    _require("query", query, (torch.float32,), (b, m, 3))
+    _require("query", query, (torch.float32,), (b, query.shape[1], 3))
     if not 1 <= k <= min(KNN_MAX_K, n) or n > KNN_MAX_POINTS:
         raise ValueError(f"knn kernel supports 1 <= k <= min(32, N) and "
                          f"N <= {KNN_MAX_POINTS}; got k={k}, N={n}")
+
+
+def _knn_fake(xyz, query, k: int):
+    _check_knn(xyz, query, k)
+    return xyz.new_empty((xyz.shape[0], query.shape[1],
+                          min(k, xyz.shape[1])), dtype=torch.int32)
+
+
+def _knn_cuda(xyz, query, k: int):
+    _check_knn(xyz, query, k)
+    b, n, _ = xyz.shape
+    m = query.shape[1]
     out = torch.empty((b, m, k), dtype=torch.int32, device=xyz.device)
     _launch("cmr_knn", _ptr(xyz), _ptr(query), _ptr(out), b, n, m, k,
             _stream())
@@ -407,9 +479,17 @@ def _raster_mean_count(q: torch.Tensor, scale: Optional[torch.Tensor],
     return sums / cnt.clamp_min(1.0)[..., None], cnt
 
 
-# operand mode of the raster kernel by compute dtype
+# operand mode of the raster kernel by compute dtype, and back (the
+# operators take the mode)
 _RASTER_MODES = {None: 0, torch.float32: 0, torch.bfloat16: 1,
                  torch.int8: 2}
+_MODE_DTYPES = (None, torch.bfloat16, torch.int8)
+
+
+def _raster_mode(compute_dtype) -> int:
+    if compute_dtype not in _RASTER_MODES:
+        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
+    return _RASTER_MODES[compute_dtype]
 
 
 def segment_mean_count_image_project(
@@ -421,21 +501,40 @@ def segment_mean_count_image_project(
     quantisation (``scale`` by a reduction kernel over all K rows, as
     :func:`quantize_int8`) happen on the card. Each output element is
     written once."""
+    return OPERATORS["segment_mean_count_image_project"](
+        pcT, feat, ab, counts, int(h), int(w), _raster_mode(compute_dtype))
+
+
+def _check_raster_project(pcT, feat, ab, counts, h: int, w: int) -> None:
     if not _on_cuda(pcT, feat, ab, counts):
-        return segment_mean_count_image_project_plain(
-            pcT, feat, ab, counts, h, w, compute_dtype)
+        return
     b, _, k = pcT.shape
     f = feat.shape[-1]
     _require("pcT", pcT, (torch.float32,), (b, 3, k))
     _require("feat", feat, (torch.float32, torch.bfloat16), (b, k, f))
     _require("ab", ab, (torch.float32,), (b, 12))
     _require("counts", counts, (torch.int32,), (b,))
-    if compute_dtype not in _RASTER_MODES:
-        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
-    mode = _RASTER_MODES[compute_dtype]
     if min(k, f, h, w) < 1:
         raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
                          f"F={f}, h={h}, w={w}")
+
+
+def _image_outputs(data, h: int, w: int):
+    """Empty ``([B,h*w,F], [B,h*w])`` f32 like a raster's outputs."""
+    b, f = data.shape[0], data.shape[-1]
+    return (data.new_empty((b, h * w, f), dtype=torch.float32),
+            data.new_empty((b, h * w), dtype=torch.float32))
+
+
+def _raster_project_fake(pcT, feat, ab, counts, h: int, w: int, mode: int):
+    _check_raster_project(pcT, feat, ab, counts, h, w)
+    return _image_outputs(feat, h, w)
+
+
+def _raster_project_cuda(pcT, feat, ab, counts, h: int, w: int, mode: int):
+    _check_raster_project(pcT, feat, ab, counts, h, w)
+    b, _, k = pcT.shape
+    f = feat.shape[-1]
     dev = pcT.device
     # scratch: pixel ids [B, K] int32, then (int8) scale [B, F] f32
     pix_bytes = -(-b * k * 4 // 16) * 16
@@ -483,7 +582,14 @@ def _scratch(nbytes: int, device: torch.device, stream: int
              ) -> torch.Tensor:
     """A byte buffer of at least ``nbytes`` on ``device``, kept for the
     CUDA ``stream`` between calls: a kernel that takes it reads and writes
-    it only while it runs, and the stream runs its calls in order."""
+    it only while it runs, and the stream runs its calls in order.
+
+    While the stream is captured into a CUDA graph, a buffer of the call's
+    own instead, from the graph's private pool: the graph replays into it
+    for as long as the graph lives, and no later call or capture can free
+    or grow it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
     key = (device, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < nbytes:
@@ -498,14 +604,28 @@ def segment_sum(data: torch.Tensor, idx: torch.Tensor,
     ``idx``, ``num_segments`` at most 65535. The kernel buckets the rows by
     segment, then writes every output row once, its rows added in ascending
     order in fixed pieces: the same bits on every run."""
+    return OPERATORS["segment_sum"](data, idx, int(num_segments))
+
+
+def _check_segment_sum(data, idx, m: int) -> None:
     if not _on_cuda(data, idx):
-        return segment_sum_plain(data, idx, num_segments)
+        return
     b, n, f = data.shape
-    m = int(num_segments)
     _require("data", data, (torch.float32,), (b, n, f))
     _require("idx", idx, (torch.int32,), (b, n))
     if m < 1:
         raise ValueError(f"num_segments must be positive, got {m}")
+    _refuse_segments("cmr_segment_sum", m)
+
+
+def _segment_sum_fake(data, idx, m: int):
+    _check_segment_sum(data, idx, m)
+    return data.new_empty((data.shape[0], m, data.shape[2]))
+
+
+def _segment_sum_cuda(data, idx, m: int):
+    _check_segment_sum(data, idx, m)
+    b, n, f = data.shape
     stream = torch.cuda.current_stream(data.device).cuda_stream
     nbytes = _segment_sum_scratch_bytes(b, n, m, f)
     scratch = _scratch(nbytes, data.device, stream) if nbytes else None
@@ -608,15 +728,9 @@ def _image_raster(data, ids, h: int, w: int, compute_dtype, sums: bool):
     :func:`quantize_int8`) happen on the card; each output element is
     written once, the same bits on every launch. Raises on what the kernel
     cannot take."""
+    mode = _raster_mode(compute_dtype)
+    _check_image_raster(data, ids, h, w)
     b, k, f = data.shape
-    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
-    _require("ids", ids, (torch.int32,), (b, k))
-    if compute_dtype not in _RASTER_MODES:
-        raise ValueError(f"unsupported raster compute dtype {compute_dtype}")
-    mode = _RASTER_MODES[compute_dtype]
-    if min(k, f, h, w) < 1:
-        raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
-                         f"F={f}, h={h}, w={w}")
     dev = data.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = _scratch(b * f * 4, dev, stream) if mode == 2 else None
@@ -680,14 +794,33 @@ def segment_mean_count_image(
         out = SegmentMeanCountImageFn.apply(data, ids, h, w, compute_dtype)
         segment_sum_image.launches += 1
         return out
-    if not _on_cuda(data, ids):
-        return segment_mean_count_image_plain(data, ids, h, w, compute_dtype)
-    out = _image_raster(data, ids, h, w, compute_dtype, sums=False)
-    segment_mean_count_image.launches += 1
-    return out
+    return OPERATORS["segment_mean_count_image"](
+        data, ids, int(h), int(w), _raster_mode(compute_dtype))
 
 
 segment_mean_count_image.launches = 0
+
+
+def _check_image_raster(data, ids, h: int, w: int) -> None:
+    if not _on_cuda(data, ids):
+        return
+    b, k, f = data.shape
+    _require("data", data, (torch.float32, torch.bfloat16), (b, k, f))
+    _require("ids", ids, (torch.int32,), (b, k))
+    if min(k, f, h, w) < 1:
+        raise ValueError(f"raster kernel needs K, F, h, w >= 1; got K={k}, "
+                         f"F={f}, h={h}, w={w}")
+
+
+def _image_raster_fake(data, ids, h: int, w: int, mode: int):
+    _check_image_raster(data, ids, h, w)
+    return _image_outputs(data, h, w)
+
+
+def _segment_mean_count_image_cuda(data, ids, h: int, w: int, mode: int):
+    out = _image_raster(data, ids, h, w, _MODE_DTYPES[mode], sums=False)
+    segment_mean_count_image.launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -716,22 +849,41 @@ def segment_sum_shared(data: torch.Tensor, idx: torch.Tensor,
     hypothesis buckets its rows by segment and writes its ``[M, F]`` slab
     once, each segment's rows added in ascending order: the same bits on
     every run."""
+    return OPERATORS["segment_sum_shared"](data, idx, int(num_segments))
+
+
+segment_sum_shared.launches = 0
+
+
+def _check_segment_sum_shared(data, idx, m: int) -> None:
     if not _on_cuda(data, idx):
-        return segment_sum_shared_plain(data, idx, num_segments)
+        return
     b, n, f = data.shape
-    p, m = idx.shape[1], int(num_segments)
     _require("data", data, (torch.float32,), (b, n, f))
-    _require("idx", idx, (torch.int32,), (b, p, n))
+    _require("idx", idx, (torch.int32,), (b, idx.shape[1], n))
     if m < 1:
         raise ValueError(f"num_segments must be positive, got {m}")
+    _refuse_segments("cmr_segment_sum_shared", m)
+    if n > MAX_SEGMENTS + 1:
+        raise RuntimeError(f"cmr_segment_sum_shared failed: {_REFUSALS[-1]} "
+                           f"(-1): {n} rows > {MAX_SEGMENTS + 1}")
+
+
+def _segment_sum_shared_fake(data, idx, m: int):
+    _check_segment_sum_shared(data, idx, m)
+    b, p = idx.shape[:2]
+    return data.new_empty((b, p, m, data.shape[2]), dtype=torch.float32)
+
+
+def _segment_sum_shared_cuda(data, idx, m: int):
+    _check_segment_sum_shared(data, idx, m)
+    b, n, f = data.shape
+    p = idx.shape[1]
     out = torch.empty((b, p, m, f), device=data.device)
     _launch("cmr_segment_sum_shared", _ptr(data), _ptr(idx), _ptr(out), b, p,
             n, m, f, _stream())
     segment_sum_shared.launches += 1
     return out
-
-
-segment_sum_shared.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -797,13 +949,37 @@ def mask_compact_pack(mask: torch.Tensor, pcT: torch.Tensor,
     bytes). The outputs come from ``torch.empty``: one launch ranks each
     sample's kept rows, the next writes every slot once, kept rows and
     zeros (:func:`_mask_pack_into`); the two count as one."""
-    if not _on_cuda(mask, pcT, feat):
-        return mask_compact_pack_plain(mask, pcT, feat, k)
-    b, n = mask.shape
-    k = int(k)
     if mask.dtype not in (torch.bool, torch.uint8):
         mask = mask != 0
-    mask = mask.contiguous()
+    return OPERATORS["mask_compact_pack"](mask.contiguous(), pcT, feat, int(k))
+
+
+def _check_mask_pack(mask, pcT, feat, k: int) -> None:
+    """What :func:`_mask_pack_into` refuses before it reads a pointer."""
+    if not _on_cuda(mask, pcT, feat):
+        return
+    b, n = mask.shape
+    f = feat.shape[-1]
+    _require("mask", mask, (torch.bool, torch.uint8), (b, n))
+    _require("pcT", pcT, (torch.float32,), (b, 3, n))
+    _require("feat", feat, (feat.dtype,), (b, n, f))
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    if (f * feat.element_size()) % 2:
+        raise ValueError(f"feature rows of {f * feat.element_size()} bytes "
+                         "cannot be copied in 2-byte chunks")
+
+
+def _mask_pack_fake(mask, pcT, feat, k: int):
+    _check_mask_pack(mask, pcT, feat, k)
+    b = mask.shape[0]
+    return (feat.new_empty((b, k, feat.shape[-1])),
+            feat.new_empty((b, 3, k), dtype=torch.float32))
+
+
+def _mask_pack_cuda(mask, pcT, feat, k: int):
+    _check_mask_pack(mask, pcT, feat, k)
+    b = mask.shape[0]
     feat_out = torch.empty((b, k, feat.shape[-1]), dtype=feat.dtype,
                            device=feat.device)
     pc_out = torch.empty((b, 3, k), device=feat.device)
@@ -841,15 +1017,18 @@ def segment_sum_count_image_compact(
     bf16 ``data`` read as it comes, int32 ``ids``; in int8 the absmax
     prepass first. Each band lists the rows landing in it from all N ids,
     so no tile packing is needed."""
-    if not _on_cuda(data, ids):
-        return segment_sum_count_image_compact_plain(data, ids, h, w,
-                                                     compute_dtype)
-    out = _image_raster(data, ids, h, w, compute_dtype, sums=True)
-    segment_sum_count_image_compact.launches += 1
-    return out
+    return OPERATORS["segment_sum_count_image_compact"](
+        data, ids, int(h), int(w), _raster_mode(compute_dtype))
 
 
 segment_sum_count_image_compact.launches = 0
+
+
+def _segment_sum_count_image_compact_cuda(data, ids, h: int, w: int,
+                                          mode: int):
+    out = _image_raster(data, ids, h, w, _MODE_DTYPES[mode], sums=True)
+    segment_sum_count_image_compact.launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -980,14 +1159,10 @@ def pack_chain_weights(mats, dtype) -> torch.Tensor:
     return buf
 
 
-def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
-                 slopes, residual, final_slope, out_max):
-    """Launch the chain kernel of ``csrc/dense_chain.cu`` (layout ``cn``).
-    The weights go packed (:func:`pack_chain_weights`) and the f32 ``[B,
-    C]`` bias rows in one buffer; a slope of None is passed as 1 (LeakyReLU
-    with slope 1 is the identity, bit for bit)."""
-    b = x.shape[0]
-    c0, n = (x.shape[1], x.shape[2]) if cn else (x.shape[2], x.shape[1])
+def _check_dense_chain(cn: bool, x, weights, res_weight, pooled, slopes,
+                       residual: str) -> list:
+    """The chain kernel's refusals -> its widths ``[C0, C1, ..., CL]``."""
+    c0 = x.shape[1] if cn else x.shape[2]
     _check_chain(c0, weights, res_weight, pooled, slopes, residual)
     _require("x", x, (torch.float32, torch.bfloat16), x.shape)
     dims = [c0] + [w.shape[-1] for w in weights]
@@ -1000,11 +1175,68 @@ def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
         if tuple(w.shape) != (dims[i], dims[i + 1]):
             raise ValueError(f"layer {i}: weight {tuple(w.shape)}, expected "
                              f"{(dims[i], dims[i + 1])}")
-    dt, proj = x.dtype, residual == "proj"
-    mats = list(weights) + ([res_weight] if proj else [])
-    wbuf = pack_chain_weights(mats, dt)
-    rows = list(biases) + ([res_bias] if proj else [])
-    bbuf = torch.cat([_batch_bias(v, b) for v in rows], dim=1).contiguous()
+    return dims
+
+
+def _slope(v) -> float:
+    """A slope of None as 1: LeakyReLU with slope 1 is the identity, bit
+    for bit, in the kernel and in :func:`_leaky` alike."""
+    return 1.0 if v is None else float(v)
+
+
+def _chain_call(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
+                slopes, residual, final_slope, out_max):
+    """The chain operator (layout ``cn``) on a wrapper's arguments. For
+    CUDA tensors the weights go packed (:func:`pack_chain_weights`) and
+    the f32 ``[B, C]`` bias rows in one buffer, made here, outside the
+    operator; the CPU's plain version takes the layers as they are."""
+    packed = bias_rows = None
+    if _on_cuda(*_chain_tensors(x, weights, biases, res_weight, res_bias,
+                                pooled)):
+        _check_dense_chain(cn, x, weights, res_weight, pooled, slopes,
+                           residual)
+        proj = residual == "proj"
+        packed = pack_chain_weights(
+            list(weights) + ([res_weight] if proj else []), x.dtype)
+        rows = list(biases) + ([res_bias] if proj else [])
+        bias_rows = torch.cat([_batch_bias(v, x.shape[0]) for v in rows],
+                              dim=1).contiguous()
+    op = OPERATORS["fused_dense_chain_cn" if cn else "fused_dense_chain"]
+    out, mx = op(x, list(weights), list(biases), res_weight, res_bias, pooled,
+                 packed, bias_rows, [_slope(v) for v in slopes], residual,
+                 _slope(final_slope), bool(out_max))
+    return (out, mx) if out_max else out
+
+
+def _dense_chain_fake(cn: bool, x, weights, biases, res_weight, res_bias,
+                      pooled, packed, bias_rows, slopes, residual,
+                      final_slope, out_max):
+    c_out = weights[-1].shape[-1]
+    if _on_cuda(*_chain_tensors(x, weights, biases, res_weight, res_bias,
+                                pooled)):
+        _check_dense_chain(cn, x, weights, res_weight, pooled, slopes,
+                           residual)
+    else:
+        _check_chain(x.shape[1 if cn else 2], weights, res_weight, pooled,
+                     slopes, residual)
+    b, n = x.shape[0], x.shape[2 if cn else 1]
+    out = x.new_empty((b, c_out, n) if cn else (b, n, c_out))
+    return out, x.new_empty((b, c_out) if out_max else (0,))
+
+
+def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
+                 packed, bias_rows, slopes, residual, final_slope, out_max):
+    """Launch the chain kernel of ``csrc/dense_chain.cu`` (layout ``cn``)
+    on the packed weights and bias rows of :func:`_chain_call`."""
+    dims = _check_dense_chain(cn, x, weights, res_weight, pooled, slopes,
+                              residual)
+    if packed is None or bias_rows is None:
+        raise ValueError("the chain kernel takes its weights packed "
+                         "(pack_chain_weights) and its bias rows")
+    if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight, res_bias,
+                                    pooled), packed, bias_rows):
+        raise ValueError("the chain kernel takes CUDA tensors")
+    b, n, dt = x.shape[0], x.shape[2 if cn else 1], x.dtype
     prow = (pooled.to(dt).float().contiguous()
             if residual == "identity_split" else None)
     c_out = dims[-1]
@@ -1013,14 +1245,12 @@ def _dense_chain(cn: bool, x, weights, biases, res_weight, res_bias, pooled,
     mx = (torch.full((b, c_out), float("-inf"), device=x.device)
           if out_max else None)
     dims4 = dims + [0] * (CHAIN_MAX_LAYERS + 1 - len(dims))
-    s = [1.0 if v is None else float(v) for v in slopes]
-    s += [1.0] * (CHAIN_MAX_LAYERS - len(s))
+    s = list(slopes) + [1.0] * (CHAIN_MAX_LAYERS - len(slopes))
     _launch("cmr_dense_chain_cn" if cn else "cmr_dense_chain", _ptr(x),
-            0 if dt == torch.float32 else 1, _ptr(wbuf), _ptr(bbuf),
+            0 if dt == torch.float32 else 1, _ptr(packed), _ptr(bias_rows),
             _ptr(prow), _ptr(out), _ptr(mx), b, n, len(weights), *dims4,
-            _RESIDUALS.index(residual), *s,
-            1.0 if final_slope is None else float(final_slope), _stream())
-    return (out, mx.to(dt)) if out_max else out
+            _RESIDUALS.index(residual), *s, final_slope, _stream())
+    return out, (mx.to(dt) if out_max else x.new_empty((0,)))
 
 
 def fused_dense_chain(x: torch.Tensor, weights, biases, res_weight=None,
@@ -1034,14 +1264,8 @@ def fused_dense_chain(x: torch.Tensor, weights, biases, res_weight=None,
     tensor cores, f32 on the CUDA cores; both keep the weights in shared
     memory for the whole launch. No gradient: :func:`dense_chain` adds
     it."""
-    args = (x, weights, biases, res_weight, res_bias, pooled, slopes,
-            residual, final_slope, out_max)
-    if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight,
-                                    res_bias, pooled)):
-        return fused_dense_chain_plain(*args)
-    out = _dense_chain(False, *args)
-    fused_dense_chain.launches += 1
-    return out
+    return _chain_call(False, x, weights, biases, res_weight, res_bias,
+                       pooled, slopes, residual, final_slope, out_max)
 
 
 fused_dense_chain.launches = 0
@@ -1053,14 +1277,8 @@ def fused_dense_chain_cn(x: torch.Tensor, weights, biases, res_weight=None,
                          out_max: bool = False):
     """Kernel wrapper of :func:`fused_dense_chain_cn_plain`: f32 or bf16
     ``x [B,C0,N]``, as :func:`fused_dense_chain`."""
-    args = (x, weights, biases, res_weight, res_bias, pooled, slopes,
-            residual, final_slope, out_max)
-    if not _on_cuda(*_chain_tensors(x, weights, biases, res_weight,
-                                    res_bias, pooled)):
-        return fused_dense_chain_cn_plain(*args)
-    out = _dense_chain(True, *args)
-    fused_dense_chain_cn.launches += 1
-    return out
+    return _chain_call(True, x, weights, biases, res_weight, res_bias,
+                       pooled, slopes, residual, final_slope, out_max)
 
 
 fused_dense_chain_cn.launches = 0
@@ -1112,15 +1330,25 @@ def segment_sum_image(data: torch.Tensor, ids: torch.Tensor, h: int, w: int,
     (a 128-lane column one-hot times a gate per image row) was made for its
     vector unit; here the pixel-id band kernel writing sums computes the
     same function, each pixel's sum in a fixed order."""
-    if not _on_cuda(data, ids):
-        return segment_sum_image_plain(data, ids, h, w, compute_dtype)
     _factored_refusal(w, compute_dtype)
-    out, _ = _image_raster(data, ids, h, w, compute_dtype, sums=True)
-    segment_sum_image.launches += 1
-    return out
+    return OPERATORS["segment_sum_image"](
+        data, ids, int(h), int(w), _raster_mode(compute_dtype))
 
 
 segment_sum_image.launches = 0
+
+
+def _segment_sum_image_fake(data, ids, h: int, w: int, mode: int):
+    _factored_refusal(w, _MODE_DTYPES[mode])
+    _check_image_raster(data, ids, h, w)
+    return _image_outputs(data, h, w)[0]
+
+
+def _segment_sum_image_cuda(data, ids, h: int, w: int, mode: int):
+    _factored_refusal(w, _MODE_DTYPES[mode])
+    out, _ = _image_raster(data, ids, h, w, _MODE_DTYPES[mode], sums=True)
+    segment_sum_image.launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1287,6 +1515,115 @@ def dense_chain(x: torch.Tensor, weights, biases, res_weight=None,
     return DenseChainFn.apply(cn, len(weights), tuple(slopes), residual,
                               final_slope, out_max, x, *weights, *biases,
                               res_weight, res_bias, pooled)
+
+
+# --------------------------------------------------------------------------
+# the kernels as operators of the ``cmr`` namespace
+# --------------------------------------------------------------------------
+
+def _fused_dense_chain_cuda(*args):
+    out = _dense_chain(False, *args)
+    fused_dense_chain.launches += 1
+    return out
+
+
+def _fused_dense_chain_cn_cuda(*args):
+    out = _dense_chain(True, *args)
+    fused_dense_chain_cn.launches += 1
+    return out
+
+
+def _chain_plain(plain):
+    def cpu(x, weights, biases, res_weight, res_bias, pooled, _packed,
+            _bias_rows, slopes, residual, final_slope, out_max):
+        out = plain(x, weights, biases, res_weight, res_bias, pooled, slopes,
+                    residual, final_slope, out_max)
+        return out if out_max else (out, x.new_empty((0,)))
+    return cpu
+
+
+def _with_mode(plain):
+    """A plain raster taking the operators' mode for its compute dtype."""
+    return lambda *args: plain(*args[:-1], _MODE_DTYPES[args[-1]])
+
+
+def _contiguous(out):
+    """Outputs as the fake implementations give them: a plain version may
+    return a view of a larger buffer."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
+_CHAIN_SCHEMA = ("(Tensor x, Tensor[] weights, Tensor[] biases, "
+                 "Tensor? res_weight, Tensor? res_bias, Tensor? pooled, "
+                 "Tensor? packed_weights, Tensor? bias_rows, float[] slopes, "
+                 "str residual, float final_slope, bool out_max) "
+                 "-> (Tensor, Tensor)")
+_RASTER_SCHEMA = "(Tensor data, Tensor ids, int h, int w, int mode)"
+# name -> (schema, CUDA implementation (the launch), CPU implementation (the
+# plain version), fake implementation)
+_OPERATOR_TABLE = {
+    "segment_softmax_attend": (
+        "(Tensor attn, Tensor values, Tensor idx, int num_segments) "
+        "-> (Tensor, Tensor, Tensor)", _segment_softmax_attend_cuda,
+        lambda a, v, i, m: segment_softmax_attend_plain(a, v, i, m, True),
+        _segment_softmax_attend_fake),
+    "gather_rows": ("(Tensor table, Tensor idx) -> Tensor",
+                    _gather_rows_cuda, gather_rows_plain, _gather_rows_fake),
+    "knn": ("(Tensor xyz, Tensor query, int k) -> Tensor", _knn_cuda,
+            knn_plain, _knn_fake),
+    "segment_mean_count_image_project": (
+        "(Tensor pcT, Tensor feat, Tensor ab, Tensor counts, int h, int w, "
+        "int mode) -> (Tensor, Tensor)", _raster_project_cuda,
+        _with_mode(segment_mean_count_image_project_plain),
+        _raster_project_fake),
+    "segment_sum": ("(Tensor data, Tensor idx, int num_segments) -> Tensor",
+                    _segment_sum_cuda, segment_sum_plain, _segment_sum_fake),
+    "segment_mean_count_image": (
+        _RASTER_SCHEMA + " -> (Tensor, Tensor)",
+        _segment_mean_count_image_cuda,
+        _with_mode(segment_mean_count_image_plain), _image_raster_fake),
+    "segment_sum_shared": (
+        "(Tensor data, Tensor idx, int num_segments) -> Tensor",
+        _segment_sum_shared_cuda, segment_sum_shared_plain,
+        _segment_sum_shared_fake),
+    "mask_compact_pack": (
+        "(Tensor mask, Tensor pcT, Tensor feat, int k) -> (Tensor, Tensor)",
+        _mask_pack_cuda, mask_compact_pack_plain, _mask_pack_fake),
+    "segment_sum_count_image_compact": (
+        _RASTER_SCHEMA + " -> (Tensor, Tensor)",
+        _segment_sum_count_image_compact_cuda,
+        _with_mode(segment_sum_count_image_compact_plain),
+        _image_raster_fake),
+    "fused_dense_chain": (
+        _CHAIN_SCHEMA, _fused_dense_chain_cuda,
+        _chain_plain(fused_dense_chain_plain),
+        functools.partial(_dense_chain_fake, False)),
+    "fused_dense_chain_cn": (
+        _CHAIN_SCHEMA, _fused_dense_chain_cn_cuda,
+        _chain_plain(fused_dense_chain_cn_plain),
+        functools.partial(_dense_chain_fake, True)),
+    "segment_sum_image": (
+        _RASTER_SCHEMA + " -> Tensor", _segment_sum_image_cuda,
+        _with_mode(segment_sum_image_plain), _segment_sum_image_fake),
+}
+
+
+def _register(lib: torch.library.Library) -> dict:
+    ops = {}
+    for name, (schema, cuda, cpu, fake) in _OPERATOR_TABLE.items():
+        lib.define(name + schema)
+        lib.impl(name, cuda, "CUDA")
+        lib.impl(name, lambda *args, cpu=cpu: _contiguous(cpu(*args)), "CPU")
+        torch.library.register_fake(f"cmr::{name}", fake, lib=lib)
+        ops[name] = getattr(torch.ops.cmr, name).default
+    return ops
+
+
+_LIBRARY = torch.library.Library("cmr", "DEF")
+#: wrapper name -> its ``torch.ops.cmr`` operator (the forward kernels)
+OPERATORS = _register(_LIBRARY)
 
 
 WRAPPERS = (segment_softmax_attend, gather_rows, knn,

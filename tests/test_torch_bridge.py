@@ -111,7 +111,8 @@ for name in ("models.cost_volume", "train.train_iter", "env.environment",
              "ops.scatter", "serve", "ops.kernels", "utils.profiling",
              "tools.raster_probe", "tools.episode_trace", "tools.train_probe",
              "cli.common", "cli.test_agent", "cli.test_geo",
-             "train.checkpoint", "train.metrics", "data.loader", "native"):
+             "train.checkpoint", "train.metrics", "train.export",
+             "data.loader", "native"):
     assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))
 """
