@@ -11,6 +11,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase factored               # kernel 6b
     python3 chip_smoke.py --phase eval                   # the E7 evaluation
     python3 chip_smoke.py --phase export                 # the serving export
+    python3 chip_smoke.py --phase train                  # the training CLIs
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -178,7 +179,36 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     (``[captured]``); the geo forward replayed again after the episode was
     captured, bit-equal (``[export_replay]``); last the fresh process calls
     each artifact on the exporters' inputs, bit-equal to their replays, and
-    the first again after every later capture (``[export_load]``).
+    the first again after every later capture (``[export_load]``);
+20. the training entry points (also alone with ``--phase train``), at
+    KITTI width and depth, B = 8, f32, random weights, the synthetic
+    dataset (16 train and 8 val scenes), each CLI through its ``main`` with
+    its stdout relayed, at the CLIs' own precision (TF32 matmuls and
+    convolutions). First ``cli.train_iter --steps 3`` without ``--remat``
+    in a process of its own (``--iter-cli-worker``; the whole run starts it
+    before phase 1: the step's ~69 GiB peak wants the card to itself) and
+    with ``--remat`` here (``[train_iter_cli]``: step ms, peak memory);
+    ``cli.train_geo`` for 6 steps eager and 12 at ``--steps-per-dispatch
+    2`` (one captured CUDA graph, whose replays launch through no wrapper;
+    a stop file after its sixth call), then ``--resume`` from the stop
+    file's checkpoint, the step continuing (``[train_geo_cli]``: the median
+    steps/s of the 5 eager steps and of the 5 replays after the capture,
+    peak memory, launches per step, and the busy share of the eager step
+    beside the graph's, ``[train_geo_busy]``); ``make_geo_multi_step(S=2)``
+    against two eager steps on the same batches and generator state
+    (losses rtol 1e-5, eval loss 1e-3, whether the parameters came out
+    bit-equal, ``[geo_multi_twin]``); ``cli.train_agent --steps 4`` (32 PPO
+    updates) plain and with ``--expert-beta-frac 0.5``
+    (``[train_agent_cli]``); one IterModel train step at B = 8 under
+    ``cost_volume_remat`` (two warps) against its plain-kernel twin (logits
+    rtol 2e-4, phase 6's gradient rule, ``[iter_train_twin]``); the geo and
+    the IterModel train step at TF32 against the same step in full f32, the
+    CLIs' precision against the twins' (``[tf32_twin]``); a 6-DoF rollout +
+    update (phase 7's gate) and eval episode (phase 4's) against their
+    twins (``[six_dof]``); a bf16 + int8 eval episode under
+    ``obs3d_source="compact"`` in the nc and the cn layout against its twin
+    and each other, with the agent's device time on the compacted and the
+    full observation (``[obs3d_compact]``).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -1002,13 +1032,33 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
                           for f in nudges]
             losses[name] = [step(twin, batch)["loss"].item()
                             for _ in range(3)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
+                                               losses["plain"])]
+    hold_gradients("geo_train_vs_plain", grads["kernels"], grads["plain"],
+                   nudged,
+                   loss_kernels=",".join(f"{v:.7f}" for v in
+                                         losses["kernels"]),
+                   loss_plain=",".join(f"{v:.7f}" for v in losses["plain"]),
+                   loss_rel_diff=",".join(f"{v:.2e}" for v in rel))
+    # step 1 differs only by summation order; Adam's normalised update can
+    # turn a near-zero gradient element's sign into a full lr step after it
+    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
+
+
+def hold_gradients(tag: str, got, want, nudged, **extra) -> None:
+    """Phase 6's gradient rule: each tensor of ``got`` (the kernels' twin)
+    within 1e-3 of ``want``'s (the plain twin's) max, or within 4x what a
+    last-bit nudge of the input already moves (``nudged``: the plain twin's
+    gradients on nudged inputs); at most 1% of the tensors past that, each
+    within 2e-3 of its max. Prints the statistics (and ``extra``) on a
+    ``[tag]`` line, then asserts the rule."""
     worst, beyond, worst_vs_floor, outliers = 0.0, 0, 0.0, []
     worst_rel, floors_rel = 0.0, []
-    for n, g in grads["kernels"].items():
-        want = grads["plain"][n]
-        scale = want.abs().max().item()
-        diff = (g - want).abs().max().item()
-        floor = max((gn[n] - want).abs().max().item() for gn in nudged)
+    for n, g in got.items():
+        w = want[n]
+        scale = w.abs().max().item()
+        diff = (g - w).abs().max().item()
+        floor = max((gn[n] - w).abs().max().item() for gn in nudged)
         # The twins sum in other orders: the plain versions' scatter_add_
         # atomics and cuDNN's convolution backward change their order on
         # every run, kernels 1 and 5 add in ascending row order. Within
@@ -1026,25 +1076,16 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
             floors_rel.append(floor / scale)
         if diff > 1e-3 * scale + 1e-7:
             beyond += 1
-            worst_vs_floor = max(worst_vs_floor, diff / floor)
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
-                                               losses["plain"])]
-    line("geo_train_vs_plain", grad_tensors=len(grads["kernels"]),
-         max_diff_over_tol=f"{worst:.3f}", tensors_past_tol=len(outliers),
-         tensors_beyond_1e3_of_max=beyond,
+            worst_vs_floor = max(worst_vs_floor, diff / max(floor, 1e-30))
+    line(tag, grad_tensors=len(got), max_diff_over_tol=f"{worst:.3f}",
+         tensors_past_tol=len(outliers), tensors_beyond_1e3_of_max=beyond,
          past_tol_max_diff_over_max_abs=f"{worst_rel:.3e}",
          nudge_floor_over_max_abs_median=(
              f"{statistics.median(floors_rel):.3e}"),
-         their_max_diff_over_nudge_diff=f"{worst_vs_floor:.3f}",
-         loss_kernels=",".join(f"{v:.7f}" for v in losses["kernels"]),
-         loss_plain=",".join(f"{v:.7f}" for v in losses["plain"]),
-         loss_rel_diff=",".join(f"{v:.2e}" for v in rel))
+         their_max_diff_over_nudge_diff=f"{worst_vs_floor:.3f}", **extra)
     for o in outliers:
         assert o[1] <= 2e-3 * o[2] + 1e-7, o
-    # step 1 differs only by summation order; Adam's normalised update can
-    # turn a near-zero gradient element's sign into a full lr step after it
-    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
-    assert len(outliers) <= len(grads["kernels"]) // 100, outliers
+    assert len(outliers) <= len(got) // 100, outliers
 
 
 def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
@@ -1059,12 +1100,6 @@ def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
     update = train_agent.make_ppo_update_step(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     pbs = cfg.ppo_batch_size
-
-    def minibatches(samples, order):
-        for s in range(0, len(order) - pbs + 1, pbs):
-            rows = torch.as_tensor(order[s:s + pbs], device=dev)
-            yield {k: v.index_select(0, rows) for k, v in samples.items()}
-
     warm = TrajectoryBuffer(cfg.gamma, cfg.gae_lambda)       # warm-up
     warm.add(rollout(state, geo_out, batch, gen)[0])
     update(state, {k: v[:pbs] for k, v in warm.samples().items()})
@@ -1083,7 +1118,7 @@ def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
     samples = buf.samples()
     order = np.random.default_rng(cfg.seed).permutation(
         samples["state_2d"].shape[0])
-    for mb in minibatches(samples, order):
+    for mb in minibatches(torch, samples, order, pbs):
         metrics, t = timed(torch, lambda: update(state, mb))
         update_s.append(t)
         assert all(torch.isfinite(v) for v in metrics.values()), metrics
@@ -1106,8 +1141,30 @@ def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
                  unprofiled_ms=statistics.median(rollout_s) * 1e3,
                  phase="agent_rollout")
 
-    # an expert_beta=1.0 rollout and one update, each against its twin
-    # with the plain kernels, from the same agent weights
+    agent_train_twin(torch, kernels, cfg, geo_out, batch, dev,
+                     order[order < B * cfg.action_num],
+                     "agent_train_vs_plain")
+    return counts
+
+
+def minibatches(torch, samples, order, pbs: int):
+    """Full minibatches of ``pbs`` rows of ``samples`` in ``order``, as
+    ``cli/train_agent.py`` takes them."""
+    for s in range(0, len(order) - pbs + 1, pbs):
+        rows = torch.as_tensor(order[s:s + pbs],
+                               device=samples["state_2d"].device)
+        yield {k: v.index_select(0, rows) for k, v in samples.items()}
+
+
+def agent_train_twin(torch, kernels, cfg, geo_out, batch, dev, order,
+                     tag: str) -> None:
+    """Phase 7's gate: an ``expert_beta=1.0`` rollout and one update on
+    the first minibatch of ``order``, each against its twin with the plain
+    kernels, from the same agent weights. Prints ``[tag]``."""
+    from cmr_agent_tpu_torch.env.buffer import TrajectoryBuffer
+    from cmr_agent_tpu_torch.train import train_agent
+    rollout = train_agent.make_rollout_fn(cfg)
+    update = train_agent.make_ppo_update_step(cfg)
     got = {}
     for name in ("kernels", "plain"):
         twin = train_agent.create_agent_state(cfg, dev, seed=2)
@@ -1118,8 +1175,8 @@ def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
                 torch.Generator(device=dev).manual_seed(5), expert_beta=1.0)
             buf = TrajectoryBuffer(cfg.gamma, cfg.gae_lambda)
             buf.add(traj)
-            mb = next(minibatches(buf.samples(), order[order < B *
-                                                       cfg.action_num]))
+            mb = next(minibatches(torch, buf.samples(), order,
+                                  cfg.ppo_batch_size))
             got[name] = (traj, final, update(twin, mb))
     (tk, fk, mk), (tp, fp, mp) = got["kernels"], got["plain"]
     for key in ("action_r", "action_t", "reward"):
@@ -1135,12 +1192,13 @@ def run_agent_train(torch, kernels, cfg, geo_model, batch, dev):
     for k in train_agent.METRIC_KEYS:
         a, b = mk[k].item(), mp[k].item()
         assert abs(a - b) <= 1e-4 * abs(b) + 1e-5, (k, a, b)
-    line("agent_train_vs_plain", expert_beta=1.0,
+    line(tag, expert_beta=1.0,
+         action_shapes=f"{tuple(tk['action_r'].shape)}"
+                       f"+{tuple(tk['action_t'].shape)}",
          state_2d_max_diff=(tk["state_2d"] - tp["state_2d"]).abs().max()
          .item(), **{f"{k}_max_diff": v for k, v in diffs.items()},
          update_loss_kernels=f"{mk['loss'].item():.7f}",
          update_loss_plain=f"{mp['loss'].item():.7f}")
-    return counts
 
 
 WARP_K, CHUNK_P, N_HYPO = 8192, 243, 729
@@ -3824,6 +3882,538 @@ def run_export(torch, hypotheses=None) -> None:
     line("export_phase", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
+# --------------------------------------------------------------------------
+# phase 20: the training entry points
+# --------------------------------------------------------------------------
+
+# the training CLIs' data: 16 train scenes (2 batches an epoch), 8 val
+TRAIN_CLI_ARGV = ("--dataset", "synthetic", "--synthetic-length", "16",
+                  "--val-length", "8", "--batch-size", str(B),
+                  "--num-workers", "4")
+GEO_STEP_KERNELS = ("segment_softmax_attend", "gather_rows", "knn",
+                    "segment_sum", "segment_softmax_attend_backward")
+ITER_KEYS = ("img", "pc", "node", "pt2node", "K", "P", "R_amplitude",
+             "T_amplitude", "label_R", "label_T_x", "label_T_z")
+
+
+def run_cli(tag: str, main, argv):
+    """A CLI's ``main(argv)`` with its stdout captured, then relayed line by
+    line as ``[tag] ...``. Returns ``(main's result, its lines)``."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(list(argv))
+    finally:
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(f"[{tag}] {ln}", flush=True)
+    return out, lines
+
+
+@contextlib.contextmanager
+def recording(torch, kernels, module, *names, after=None):
+    """Wrap the step factories ``names`` of a CLI module: each call of a
+    function they make runs between two synchronisations with the launch
+    counts set to 0 just before it. Yields ``{name: [(seconds, counts),
+    ...]}``; the last call's function and arguments are kept under
+    ``(name, "last")``. ``after(name, n)`` runs after the n-th call."""
+    calls = {n: [] for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, make):
+        def make_recorded(*a, **kw):
+            fn = make(*a, **kw)
+
+            def recorded(*args):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                calls[name].append((time.perf_counter() - t0,
+                                    kernels.launch_counts()))
+                calls[(name, "last")] = (fn, args)
+                if after is not None:
+                    after(name, len(calls[name]))
+                return out
+            return recorded
+        return make_recorded
+
+    try:
+        for n, make in saved.items():
+            setattr(module, n, wrap(n, make))
+        yield calls
+    finally:
+        for n, make in saved.items():
+            setattr(module, n, make)
+
+
+def device_busy(torch, fn) -> tuple:
+    """``(device ms, wall ms)`` of one profiled call of ``fn``."""
+    rows, wall_ms = profile_device(fn)
+    return sum(ms for ms, _ in rows.values()), wall_ms
+
+
+def ckpt_names(root: str) -> list:
+    import os
+    return sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, dirs, _ in os.walk(root) for n in dirs
+                  if os.path.isfile(os.path.join(d, n, "model")))
+
+
+def run_geo_clis(torch, kernels, tmp: str) -> None:
+    """``[train_geo_cli]``: ``cli.train_geo`` for 6 steps eager, then at
+    ``--steps-per-dispatch 2`` (one captured CUDA graph, a stop file after
+    its sixth call: one capture and 5 replays), then ``--resume`` from the
+    stop file's checkpoint for 2 more steps; the median steps/s of the
+    eager steps after the first and of the replays, peak memory, launches
+    per step and the busy share of the eager step beside the graph's
+    replay, all at the CLIs' TF32."""
+    import glob
+    import os
+    from cmr_agent_tpu_torch.cli import train_geo as cli
+    from cmr_agent_tpu_torch.cli.common import tf32_precision
+    stop = os.path.join(tmp, "geo_stop")
+    base = list(TRAIN_CLI_ARGV) + ["--logdir", os.path.join(tmp, "log")]
+    stats, names = {}, {}
+
+    def stop_after_sixth(name, n):
+        if n == 6:
+            open(stop, "w").close()
+
+    for label, name, extra, after in (
+            ("eager", "make_geo_train_step", ["--steps", "6"], None),
+            ("graph", "make_geo_multi_step",
+             ["--steps", "14", "--steps-per-dispatch", "2", "--stop-file",
+              stop], stop_after_sixth)):
+        ck = os.path.join(tmp, "geo_" + label)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording(torch, kernels, cli, name, after=after) as rec:
+            state, lines = run_cli("train_geo_cli", cli.main,
+                                   base + ["--ckpt-dir", ck] + extra)
+        wall = time.perf_counter() - t0
+        names[label] = ckpt_names(ck)
+        calls = rec[name]
+        fn, args = rec[(name, "last")]
+        assert any(ln.startswith("[val] step 0 loss") for ln in lines), lines
+        if label == "eager":
+            assert len(calls) == 6 and state.step == 6, (len(calls),
+                                                        state.step)
+            step_s = statistics.median(t for t, _ in calls[1:])
+            per_step = calls[-1][1]
+            assert all(per_step[k] > 0 for k in GEO_STEP_KERNELS), per_step
+        else:
+            # the first call warms up twice and captures once; a replay
+            # calls no wrapper, so no later call counts a launch
+            assert len(calls) == 6 and state.step == 12, (len(calls),
+                                                         state.step)
+            assert all(sum(c.values()) == 0 for _, c in calls[1:]), calls
+            assert any("stop-file" in ln for ln in lines), lines
+            step_s = statistics.median(t for t, _ in calls[1:]) / 2
+            per_step = {k: v / 3 for k, v in calls[0][1].items()}
+            assert all(per_step[k] > 0 for k in GEO_STEP_KERNELS), per_step
+        with tf32_precision():
+            device_ms, wall_ms = device_busy(torch, lambda: fn(*args))
+        steps_per_call = 1 if label == "eager" else 2
+        stats[label] = (device_ms / wall_ms, device_ms / steps_per_call)
+        line("train_geo_cli", mode=label, batch=B, tf32="on",
+             steps_per_s_median=f"{1 / step_s:.4f}",
+             timed_calls=len(calls) - 1, steps_per_call=steps_per_call,
+             call_ms=",".join(f"{t * 1e3:.2f}" for t, _ in calls),
+             first_call_s=f"{calls[0][0]:.3f}", run_s=f"{wall:.2f}",
+             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+             **{f"launches_{k}": (f"{v:g}") for k, v in per_step.items()
+                if v})
+        del state, fn, args, rec
+    line("train_geo_busy", tf32="on",
+         eager_busy_share=f"{stats['eager'][0]:.3f}",
+         graph_busy_share=f"{stats['graph'][0]:.3f}",
+         eager_device_ms_per_step=f"{stats['eager'][1]:.2f}",
+         graph_device_ms_per_step=f"{stats['graph'][1]:.2f}")
+    # saved on the step-0 validation only (it improves on inf), and by the
+    # stop file
+    assert [n.split("/")[-1] for n in names["eager"]] == ["epoch-0-step-0"]
+    assert [n.split("/")[-1] for n in names["graph"]] == [
+        "epoch-0-step-0", "stop-epoch-6-step-12"], names
+    resume, = glob.glob(os.path.join(tmp, "geo_graph", "*",
+                                     "stop-epoch-6-step-12"))
+    with recording(torch, kernels, cli, "make_geo_train_step") as rec:
+        state, lines = run_cli("train_geo_cli", cli.main, base + [
+            "--ckpt-dir", os.path.join(tmp, "geo_resume"), "--steps", "14",
+            "--resume", resume])
+    assert any(ln.startswith(f"resumed from {resume} at step 12 (optimizer "
+                             "state restored") for ln in lines), lines
+    assert state.step == 14 and len(rec["make_geo_train_step"]) == 2
+    line("train_geo_cli", mode="resume", resumed_at=12, final_step=state.step,
+         checkpoints="|".join(names["eager"] + names["graph"]))
+
+
+def check_geo_multi_twin(torch, serve, dev) -> None:
+    """``[geo_multi_twin]``: ``make_geo_multi_step(S=2)`` on the card (one
+    captured graph, replayed twice) against two eager steps on the same
+    batches and generator state: the per-step losses within rtol 1e-5, the
+    eval loss after within rtol 1e-3 (the JAX package's tolerances for
+    this pair, tests/test_train.py:355-398); then the first eager step at
+    TF32 under :func:`hold_tf32`."""
+    from cmr_agent_tpu_torch.cli.common import tf32_precision
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.train import train_geo
+    cfg = kitti_config()
+    batches = [serve.synthetic_batch(cfg, B, dev, seed=s,
+                                     keys=serve.TRAIN_KEYS) for s in (0, 1)]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    eager = train_geo.create_geo_state(cfg, dev, seed=0)
+    graph = train_geo.create_geo_state(cfg, dev, seed=0)
+    g_eager = torch.Generator(device=dev).manual_seed(7)
+    g_graph = torch.Generator(device=dev).manual_seed(7)
+    step = train_geo.make_geo_train_step(cfg)
+    want = [step(eager, b, g_eager)["loss"].item() for b in batches]
+    got = train_geo.make_geo_multi_step(cfg, 2)(graph, stacked,
+                                                g_graph)["loss"].tolist()
+    ev = train_geo.make_geo_eval_step(cfg)
+    e_want = ev(eager, batches[0])["loss"].item()
+    e_got = ev(graph, batches[0])["loss"].item()
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    e_rel = abs(e_got - e_want) / abs(e_want)
+    pairs = list(zip(list(graph.model.parameters())
+                     + list(graph.model.buffers()),
+                     list(eager.model.parameters())
+                     + list(eager.model.buffers())))
+    line("geo_multi_twin", steps=2, loss_graph=",".join(f"{v:.7f}"
+                                                       for v in got),
+         loss_eager=",".join(f"{v:.7f}" for v in want),
+         loss_rel_diff=",".join(f"{v:.2e}" for v in rel),
+         eval_loss_graph=f"{e_got:.7f}", eval_loss_eager=f"{e_want:.7f}",
+         eval_rel_diff=f"{e_rel:.2e}",
+         generator_states_equal=torch.equal(g_eager.get_state(),
+                                            g_graph.get_state()),
+         params_bit_equal=all(torch.equal(a, b) for a, b in pairs),
+         max_param_diff=max((a - b).abs().max().item() for a, b in pairs),
+         optimizer_step=graph.step)
+    assert max(rel) <= 1e-5 and e_rel <= 1e-3, (got, want, e_got, e_want)
+    assert torch.equal(g_eager.get_state(), g_graph.get_state())
+    tf32 = train_geo.create_geo_state(cfg, dev, seed=0)
+    g_tf32 = torch.Generator(device=dev).manual_seed(7)
+    with tf32_precision():
+        loss_tf32 = step(tf32, batches[0], g_tf32)["loss"].item()
+    hold_tf32(torch, "geo_train_step", loss_tf32, want[0])
+
+
+def hold_tf32(torch, step: str, loss_tf32: float, loss_f32: float,
+              logits=None, **extra) -> None:
+    """``[tf32_twin]``: a train step at the training CLIs' TF32 against
+    the same step in full f32 from the same weights and inputs. TF32 rounds
+    each matmul and convolution input to 10 mantissa bits (a relative 2^-11
+    = 4.9e-4); over the ~20 layers between the input and the loss those
+    errors add to at most about 1e-2, the gate: the loss within rtol 1e-2,
+    and ``logits`` (``(tf32, f32)``) within 1e-2 of the f32 logits' largest
+    magnitude."""
+    rel = abs(loss_tf32 - loss_f32) / abs(loss_f32)
+    if logits is not None:
+        got, want = logits
+        scale = want.abs().max().item()
+        extra["max_logit_diff_over_max_abs"] = (
+            f"{(got - want).abs().max().item() / scale:.3e}")
+    line("tf32_twin", step=step, loss_tf32=f"{loss_tf32:.7f}",
+         loss_f32=f"{loss_f32:.7f}", loss_rel_diff=f"{rel:.3e}", **extra)
+    assert rel <= 1e-2, (step, loss_tf32, loss_f32)
+    if logits is not None:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * scale)
+
+
+def run_agent_clis(torch, kernels, tmp: str) -> None:
+    """``[train_agent_cli]``: ``cli.train_agent --steps 4`` (one buffer
+    flush of 32 PPO updates, validation on 8 scenes), then the same with
+    ``--expert-beta-frac 0.5``: rollout and update ms, peak memory and the
+    launches of a rollout, an update, a geo forward and a validation
+    episode."""
+    import os
+    from cmr_agent_tpu_torch.cli import train_agent as cli
+    names = ("make_rollout_fn", "make_ppo_update_step",
+             "make_val_episode_fn", "make_geo_forward")
+    for label, extra in (("on_policy", []),
+                         ("expert_beta", ["--expert-beta-frac", "0.5"])):
+        ck = os.path.join(tmp, "agent_" + label)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording(torch, kernels, cli, *names) as rec:
+            state, lines = run_cli("train_agent_cli", cli.main, list(
+                TRAIN_CLI_ARGV) + ["--steps", "4", "--ckpt-dir", ck,
+                                   "--logdir", os.path.join(tmp, "log")]
+                + extra)
+        wall = time.perf_counter() - t0
+        ro, up = rec["make_rollout_fn"], rec["make_ppo_update_step"]
+        val, geo = rec["make_val_episode_fn"], rec["make_geo_forward"]
+        cfg = state.agent.cfg
+        # one buffer flush: num_trajectory rollouts, then full minibatches
+        n_up = cfg.num_trajectory * B * cfg.action_num // cfg.ppo_batch_size
+        assert len(ro) == 4 and len(up) == n_up and state.step == n_up, (
+            len(ro), len(up), state.step)
+        assert any(ln.startswith("[val] step 0 RRE") for ln in lines), lines
+        assert ro[-1][1]["segment_mean_count_image"] == cfg.action_num
+        assert val[-1][1]["segment_mean_count_image_project"] == \
+            cfg.action_num, val
+        assert all(geo[-1][1][k] > 0 for k in SERVING_KERNELS[:3]), geo
+        line("train_agent_cli", mode=label, batch=B,
+             rollout_ms=",".join(f"{t * 1e3:.2f}" for t, _ in ro),
+             update_ms_median=(
+                 f"{statistics.median(t for t, _ in up) * 1e3:.3f}"),
+             val_episode_ms=f"{val[-1][0] * 1e3:.2f}",
+             run_s=f"{wall:.2f}",
+             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+             checkpoints="|".join(ckpt_names(ck)),
+             **{f"rollout_{k}": v for k, v in ro[-1][1].items() if v},
+             **{f"val_episode_{k}": v for k, v in val[-1][1].items() if v},
+             **{f"geo_forward_{k}": v for k, v in geo[-1][1].items() if v})
+        del state, rec
+
+
+def run_iter_cli(torch, kernels, tmp: str, label: str) -> None:
+    """``cli.train_iter --steps 3`` at B = 8, with ``--remat`` where
+    ``label`` is "remat": step ms, peak memory, the validation line and the
+    checkpoints (the step-0 improvement and the final one)."""
+    import os
+    from cmr_agent_tpu_torch.cli import train_iter as cli
+    ck = os.path.join(tmp, "iter_" + label)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(torch, kernels, cli, "make_iter_train_step") as rec:
+        state, lines = run_cli("train_iter_cli", cli.main, list(
+            TRAIN_CLI_ARGV) + ["--steps", "3", "--ckpt-dir", ck,
+                               "--logdir", os.path.join(tmp, "log")]
+            + (["--remat"] if label == "remat" else []))
+    wall = time.perf_counter() - t0
+    calls = rec["make_iter_train_step"]
+    assert len(calls) == 3 and state.step == 3, (len(calls), state.step)
+    # one warp a step; remat warps again in the backward's recompute
+    warps = 2 if label == "remat" else 1
+    assert all(c[1]["segment_sum_shared"] == warps for c in calls), calls
+    assert any(ln.startswith("[val] step 0 cv_loss") for ln in lines)
+    names = ckpt_names(ck)
+    # the step-0 validation improves on inf; the final save at the cap
+    # (the third step is the second epoch's first: 2 batches an epoch)
+    assert [n.split("/")[-1] for n in names] == [
+        "epoch-0-step-0", "epoch-1-step-3"], names
+    line("train_iter_cli", mode=label, batch=B, tf32="on",
+         step_ms=",".join(f"{t * 1e3:.2f}" for t, _ in calls),
+         run_s=f"{wall:.2f}",
+         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         warp_launches_per_step=calls[-1][1]["segment_sum_shared"],
+         checkpoints="|".join(names))
+
+
+def run_iter_worker(torch) -> None:
+    """``[train_iter_cli]`` without ``--remat``: :func:`run_iter_cli` in a
+    process of its own (``--iter-cli-worker``), its lines relayed here. Its
+    ~69 GiB peak wants the card to itself, so the whole run starts it
+    before phase 1 and ``--phase train`` once before its repeats: after the
+    other phases this process's allocator keeps segments that a few small
+    live tensors pin (8.7 GiB reserved for 0.09 GiB allocated after
+    ``empty_cache``)."""
+    import gc
+    import os
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    gc.collect()
+    torch.cuda.empty_cache()
+    line("train_iter_cli", mode="plain", parent_allocated_gib=(
+        f"{torch.cuda.memory_allocated() / 2**30:.3f}"),
+        parent_reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_iter_") as tmp:
+        log = os.path.join(tmp, "iter_worker.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--iter-cli-worker", tmp], cwd=here, stdout=out,
+                stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            stop([proc])
+        text = open(log).read()
+    for s in text.splitlines():
+        if s.startswith("[") or rc:
+            print(s if s.startswith("[") else f"[train_iter_cli] {s}",
+                  flush=True)
+    assert rc == 0, f"the train_iter worker exited {rc}"
+
+
+def check_iter_train_twin(torch, kernels, serve, dev) -> None:
+    """``[iter_train_twin]``: one IterModel train-mode forward + backward
+    at B = 8 under ``cost_volume_remat`` (the warp runs twice, the second
+    time in the backward's recompute), the kernels' twin against the plain
+    kernels' from the same weights and geo outputs: the loss and the
+    logits within phase 9's rtol 2e-4, the tower's gradients under phase
+    6's rule with the warp's rows (``pc_geo_feat``) as the nudged input.
+    Then the kernels' twin at TF32 under :func:`hold_tf32`."""
+    from cmr_agent_tpu_torch.cli.common import tf32_precision
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.train import train_geo, train_iter
+    cfg = kitti_config(cost_volume_remat=True)
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=ITER_KEYS)
+    geo = train_geo.create_geo_state(cfg, dev, seed=0).model
+    st = train_iter.iter_model_state(
+        train_geo.make_geo_forward(cfg)(geo, batch), batch)
+    del geo
+
+    def run(model, s):
+        model.zero_grad(set_to_none=True)
+        out = model(s, with_loss=True)
+        out["cost_volume_loss"].backward()
+        return (out["cost_volume_loss"].detach(),
+                out["cost_volume_logits"].detach(),
+                {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()})
+
+    def fresh():
+        return train_iter.create_iter_state(cfg, dev, seed=0).model.train()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss_k, logits_k, grads_k = run(fresh(), st)
+    warps = kernels.launch_counts()["segment_sum_shared"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert warps == 2, warps
+    nudges = [1.0 + s * 2.0 ** -e for e in (23, 22) for s in (1.0, -1.0)]
+    # the nudged input is the warp's rows: the points only pick each row's
+    # pixel, so a last-bit nudge of them moves no gradient at all
+    with plain_kernels(kernels):
+        model = fresh()
+        loss_p, logits_p, grads_p = run(model, st)
+        nudged = [run(model, dict(st, pc_geo_feat=st["pc_geo_feat"] * f))[2]
+                  for f in nudges]
+    del model
+    torch.testing.assert_close(logits_k, logits_p, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(loss_k, loss_p, rtol=2e-4, atol=0)
+    hold_gradients("iter_train_twin", grads_k, grads_p, nudged,
+                   batch=B, remat=True, warp_launches=warps,
+                   peak_gib=f"{peak:.3f}",
+                   loss_kernels=f"{loss_k.item():.7f}",
+                   loss_plain=f"{loss_p.item():.7f}",
+                   max_logit_diff=(logits_k - logits_p).abs().max().item())
+    with tf32_precision():
+        loss_t, logits_t, grads_t = run(fresh(), st)
+    # reported, not held: a gradient that is zero but for rounding (a
+    # convolution bias ahead of a BatchNorm) differs by its whole size
+    grad_rel = sorted((grads_t[n] - g).abs().max().item()
+                      / max(g.abs().max().item(), 1e-30)
+                      for n, g in grads_k.items())
+    hold_tf32(torch, "iter_train_step", loss_t.item(), loss_k.item(),
+              (logits_t, logits_k), batch=B,
+              grad_diff_over_max_abs_median=(
+                  f"{statistics.median(grad_rel):.3e}"),
+              grad_diff_over_max_abs_max=f"{grad_rel[-1]:.3e}")
+
+
+def check_six_dof(torch, kernels, serve, dev) -> None:
+    """``[six_dof]``: ``is_6_dof`` at KITTI width, B = 8: phase 7's gate on
+    an ``expert_beta=1.0`` rollout and one update, and phase 4's on one eval
+    episode, each against its plain-kernel twin."""
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.train import train_agent, train_geo
+    cfg = kitti_config(is_6_dof=True)
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
+    geo = train_geo.create_geo_state(cfg, dev, seed=0).model.eval()
+    geo_out = train_geo.make_geo_forward(cfg)(geo, batch)
+    order = np.random.default_rng(cfg.seed).permutation(B * cfg.action_num)
+    agent_train_twin(torch, kernels, cfg, geo_out, batch, dev, order,
+                     "six_dof")
+    agent = train_agent.create_agent_state(cfg, dev, seed=3).agent.eval()
+    got = serve.serve_episode(geo, agent, cfg, batch)
+    with plain_kernels(kernels):
+        want = serve.serve_episode(geo, agent, cfg, batch)
+    r, t = got["steps"][0]
+    assert r.shape == (B, 3, cfg.num_steps) and t.shape == r.shape, r.shape
+    steps, diff = compare_episodes(torch, got, want, 1e-3)
+    line("six_dof", episode="eval", logit_shape=tuple(r.shape),
+         steps_compared=steps, max_logit_diff=diff,
+         final_pose_max_diff=(got["final_pose"] - want["final_pose"]
+                              ).abs().max().item())
+
+
+def check_obs3d_compact(torch, kernels, serve, dev) -> None:
+    """``[obs3d_compact]``: a bf16 + int8 eval episode with
+    ``obs3d_source="compact"`` in the nc and the cn layout, each against
+    its plain-kernel twin (phase 4's bf16 gate), and the two layouts against
+    each other; then the agent's device time on the compacted observation
+    beside the full one's."""
+    import dataclasses
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.env.environment import (
+        compact_observation_state, init_poses, observation_from_pose)
+    cfg = kitti_config(compute_dtype="bfloat16", obs3d_source="compact")
+    batch, model, agent, _ = serve.build_workload(cfg, B, dev, seed=0)
+    serve.centre_overlap_head_(model, batch)
+    got = {}
+    for layout in ("nc", "cn"):
+        c = dataclasses.replace(cfg, obs3d_cn=layout == "cn")
+        got[layout] = serve.serve_episode(model, agent, c, batch)
+        with plain_kernels(kernels):
+            want = serve.serve_episode(model, agent, c, batch)
+        steps, diff = compare_episodes(torch, got[layout], want, 1e-2, 3e-2)
+        line("obs3d_compact", layout=layout, vs="plain", steps_compared=steps,
+             max_logit_diff=diff)
+    steps, diff = compare_episodes(torch, got["cn"], got["nc"], 1e-2, 3e-2)
+    same = sum(torch.equal(a.argmax(-1), b.argmax(-1))
+               and torch.equal(c.argmax(-1), d.argmax(-1))
+               for (a, c), (b, d) in zip(got["cn"]["steps"],
+                                         got["nc"]["steps"]))
+    with torch.inference_mode():
+        out = model(batch)
+        state = compact_observation_state(
+            {"pc": out["pc"], "K": batch["K"],
+             "pc_overlap_pred": out["pc_overlap_pred"],
+             "pc_geo_feat": out["pc_geo_feat"],
+             "img_geo_feat": out["img_geo_feat"]}, cfg.raster_topk)
+        pose = init_poses(batch)[0]
+        obs = {src: observation_from_pose(
+            state, pose, cfg.image_h, cfg.image_w, torch.int8, "mega",
+            obs3d_compact=src == "compact") for src in ("compact", "full")}
+        assert obs["compact"][1].shape == (B, cfg.raster_topk, 5)
+        agent_ms = {src: device_busy(torch, lambda: agent(*o))[0]
+                    for src, o in obs.items()}
+    line("obs3d_compact", layout="cn_vs_nc", steps_compared=steps,
+         steps_with_equal_actions=f"{same}/{len(got['nc']['steps'])}",
+         max_logit_diff=diff, rows=cfg.raster_topk,
+         overlap_rows=state["raster_valid"].sum(1).tolist(),
+         agent_device_ms_compact=f"{agent_ms['compact']:.3f}",
+         agent_device_ms_full=f"{agent_ms['full']:.3f}")
+
+
+def run_train(torch, kernels, serve, dev) -> None:
+    """Phase 20 after :func:`run_iter_worker`, which its callers run first:
+    the training entry points (see the module docstring); the CLIs at their
+    own TF32, the twins in full f32."""
+    import gc
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        for name, fn in (
+                ("train_iter_cli_remat", lambda: run_iter_cli(
+                    torch, kernels, tmp, "remat")),
+                ("train_geo_cli", lambda: run_geo_clis(torch, kernels, tmp)),
+                ("geo_multi_twin", lambda: check_geo_multi_twin(torch, serve,
+                                                               dev)),
+                ("train_agent_cli", lambda: run_agent_clis(torch, kernels,
+                                                           tmp)),
+                ("iter_train_twin", lambda: check_iter_train_twin(
+                    torch, kernels, serve, dev)),
+                ("six_dof", lambda: check_six_dof(torch, kernels, serve,
+                                                  dev)),
+                ("obs3d_compact", lambda: check_obs3d_compact(
+                    torch, kernels, serve, dev))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            line("train_part", name=name,
+                 seconds=f"{time.perf_counter() - t0:.1f}",
+                 allocated_gib_after=(
+                     f"{torch.cuda.memory_allocated() / 2**30:.3f}"))
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -3833,9 +4423,14 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     phase 17 (kernels 1 and 6a), "compact_pack" kernels 11 and 8 from
     phases 8 and 14, "factored" kernel 6b and the raster probes from phase
     15, "eval" phase 18 (the E7 evaluation), "export" phase 19 (the
-    composed artifact at ``hypotheses`` candidates). Returns the number of
-    repeats that failed their gate."""
+    composed artifact at ``hypotheses`` candidates), "train" phase 20 (the
+    training entry points). Returns the number of repeats that failed
+    their gate."""
     failed = 0
+    if phase == "train":
+        # once: after a repeat this process's allocator pins segments the
+        # worker's step needs (see run_iter_worker)
+        run_iter_worker(torch)
     if phase == "segment_sums":
         geo_calls = geo_step_segment_calls(torch, kernels, serve, kitti_config,
                                            dev)
@@ -3860,6 +4455,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_eval(torch, kernels, dev)
             elif phase == "export":
                 run_export(torch, hypotheses)
+            elif phase == "train":
+                run_train(torch, kernels, serve, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -3881,7 +4478,7 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval|export [--repeat N] [--hypotheses K]``
+    factored|eval|export|train [--repeat N] [--hypotheses K]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate); ``--hypotheses`` is the composed
     artifact's K under ``--phase export`` (13, E7's)."""
@@ -3890,13 +4487,16 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
-                             "factored", "eval", "export"),
+                             "factored", "eval", "export", "train"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--hypotheses", type=int, default=13)
     ap.add_argument("--export-worker",
                     choices=export_labels(True),
                     help="one exporter of phase 19, which starts them")
+    ap.add_argument("--iter-cli-worker", metavar="DIR",
+                    help="phase 20's train_iter run without remat, its "
+                         "checkpoints under DIR")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3909,6 +4509,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if opts.iter_cli_worker:
+        run_iter_cli(torch, kernels, opts.iter_cli_worker, "plain")
+        return 0
     if opts.export_worker:
         export_worker(torch, kernels, serve, kitti_config, dev,
                       opts.export_worker, opts.hypotheses)
@@ -3936,6 +4539,10 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 1 if failed else 0
 
+    t0 = time.perf_counter()
+    run_iter_worker(torch)
+    line("train_part", name="train_iter_cli_plain",
+         seconds=f"{time.perf_counter() - t0:.1f}")
     rows = check_kernels(torch, kernels, dev)
     counts, _ = run_path(torch, kernels, serve, kitti_config, "float32")
     bf16_counts, _ = run_path(torch, kernels, serve, kitti_config, "bfloat16")
@@ -4000,6 +4607,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_export(torch)
     line("thirteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_train(torch, kernels, serve, dev)
+    line("fourteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
     # agent training run, one composed request, the "pack" episode, the

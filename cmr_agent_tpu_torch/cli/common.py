@@ -1,6 +1,6 @@
 """Shared CLI plumbing (counterpart of the JAX package's ``cli/common.py``):
-the common flags, the config, the dataset and its loader, seeding, and the
-geo model's weights.
+the common flags, the config, the dataset and its loader, seeding, the
+geo model's weights and the training CLIs' checks.
 
 Differences from the JAX package's CLIs:
 
@@ -8,9 +8,13 @@ Differences from the JAX package's CLIs:
   asked for the CPU, and asking for CUDA where there is none raises;
 * the JAX runtime's own flags are not ported: ``--distributed``,
   ``--coordinator``, ``--num-processes``, ``--process-id``,
-  ``--debug-nans``, the compile cache and ``--profile``;
-* settings the port's ``Config`` refuses (``--obs3d-compact``,
-  ``--remat``) raise as the ``Config`` does;
+  ``--debug-nans`` and the compile cache; ``--profile`` writes a
+  ``torch.profiler`` trace (:func:`..utils.profiling.trace_context`)
+  where the JAX CLIs write a ``jax.profiler`` one;
+* the training CLIs train in float32 only: ``--dtype bfloat16`` raises
+  (:func:`refuse_bf16_training`, ROADMAP A.5), and their f32 matmuls and
+  convolutions run at TF32 (:func:`tf32_precision`), where PyTorch's own
+  default differs between the two (matmuls off, convolutions on);
 * ``--dataset synthetic`` is served; ``kitti`` and ``nuscenes`` raise
   (ROADMAP A.6), and so does a reference ``.pth`` checkpoint;
 * checkpoints are the weight exports of :mod:`..train.checkpoint`, found
@@ -24,6 +28,7 @@ default (``raster_int8=True``) off.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import random
@@ -77,15 +82,48 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="int8 observation raster (Config.raster_int8, "
                         "already the default)")
     p.add_argument("--obs3d-compact", action="store_true",
-                   help="Config.obs3d_source='compact' (the port's Config "
-                        "refuses it)")
+                   help="eval-episode 3-D observation over the compacted "
+                        "top-K set (Config.obs3d_source='compact')")
     p.add_argument("--stop-file", default="",
                    help="graceful stop of a training run when this file "
                         "appears")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace of the run to "
+                        "<dir>/trace.json (combine with --steps for a "
+                        "bounded capture)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
     return p
+
+
+@contextlib.contextmanager
+def tf32_precision(on: bool = True):
+    """cuBLAS's f32 matmuls and cuDNN's f32 convolutions on the TF32
+    tensor cores (``on``: inputs rounded to 10 mantissa bits, f32 sums) or
+    in full f32 inside the block, the previous settings after it. The
+    training CLIs train at TF32, the f32 training mode: the JAX package's
+    f32 at its default precision rounds these inputs further (to bf16 on
+    the TPU), and full f32 takes the cost-volume tower ~10x as long. The
+    port's kernels are untouched by either setting."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def refuse_bf16_training(cfg: Config) -> None:
+    """The training CLIs' check: the port trains in float32 only."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"--dtype {cfg.compute_dtype}: the port trains in float32 only; "
+            "bf16 training is ROADMAP A.5 (the kernel-1 VJP's widening and "
+            "bf16 checks of every backward kernel)")
 
 
 def build_config(args) -> Config:

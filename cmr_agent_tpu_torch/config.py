@@ -1,25 +1,24 @@
 """Frozen configuration dataclasses (the port's own copy).
 
-The JAX package's ``Config`` fields and defaults, less the settings the
-port does not serve yet: it serves the 4-DoF agent over the full cloud
-(with the flagship's pose-aware, bearing and aux-state observation
-options) and every eval raster of the JAX package (``raster_mode``
-"megatopk", "pack", "mega", "topk", "flat", "compact"). So ``is_6_dof``,
-``obs3d_source`` and ``cost_volume_remat`` are not fields here and passing
-one raises ``TypeError``; an unknown ``raster_mode`` or ``fused_stacks``
-raises ``ValueError``. Other differences:
+The JAX package's ``Config`` fields and defaults: the 4-DoF and the 6-DoF
+agent (``is_6_dof``), every eval raster (``raster_mode`` "megatopk",
+"pack", "mega", "topk", "flat", "compact"), the full or the compacted 3-D
+observation (``obs3d_source``) and the cost volume's rematerialised train
+step (``cost_volume_remat``). An unknown ``raster_mode``, ``fused_stacks``
+or ``obs3d_source`` raises ``ValueError``. Other differences:
 
 * ``torch_dtype()`` replaces ``jnp_dtype()``, and there is no
   ``use_pallas`` switch: on the card the hand-written kernels always run,
   on the CPU their plain PyTorch versions do (the tensor's device decides,
   see :mod:`cmr_agent_tpu_torch.ops.kernels`);
 * the port reads no environment variable. The JAX package's trace-time
-  switch ``CMR_FUSED_STACKS`` is the field ``fused_stacks``: unset is
-  ``"off"``, ``"1"`` is ``"all"`` (the geo model's and the agent's
+  switches are fields: ``CMR_FUSED_STACKS`` is ``fused_stacks`` (unset is
+  ``"off"``, ``"1"`` is ``"all"``: the geo model's and the agent's
   pointwise stacks run as fused dense chains in eval mode, and eval
-  episodes hand the agent a channel-major observation) and ``"agent"`` is
-  ``"agent"`` (the agent's stacks only). ``CMR_OBS3D_CN`` (a channel-major
-  observation for an unfused agent) has no counterpart.
+  episodes hand the agent a channel-major observation; ``"agent"`` is
+  ``"agent"``, the agent's stacks only), and ``CMR_OBS3D_CN=1`` is
+  ``obs3d_cn`` (eval episodes hand an unfused agent the channel-major
+  observation too, which it transposes back).
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ _R_STEPS_DEG = (-62.5, -12.5, -2.5, -0.5, -0.1, 0.0, 0.1, 0.5, 2.5, 12.5, 62.5)
 _T_STEPS = (-8.1, -2.7, -0.9, -0.3, -0.1, 0.0, 0.1, 0.3, 0.9, 2.7, 8.1)
 RASTER_MODES = ("megatopk", "pack", "mega", "topk", "flat", "compact")
 FUSED_STACKS = ("off", "all", "agent")
+OBS3D_SOURCES = ("full", "compact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +105,10 @@ class Config:
     linear_attention_num: int = 4
     la_head_num: int = 8
 
-    # <----------- agent / RL (4-DoF: yaw + x/z steps) ---------->
+    # <----------- agent / RL ---------->
+    # 6-DoF actions (roll, yaw, pitch + x, y, z steps) instead of the 4-DoF
+    # yaw + x/z steps
+    is_6_dof: bool = False
     action_num: int = 10
     r_steps_deg: Tuple[float, ...] = _R_STEPS_DEG
     t_steps: Tuple[float, ...] = _T_STEPS
@@ -126,6 +129,10 @@ class Config:
     # geometrically. Removes the cost volume's dependence on the overlap
     # head where that head is blind (+-pi yaw on held-out scenes).
     cost_volume_unmasked: bool = False
+    # Recompute the cost-volume forward during the train step's backward
+    # (torch.utils.checkpoint) instead of holding its activations from the
+    # forward to the backward. Eval paths are unaffected.
+    cost_volume_remat: bool = False
     # Eval scores the pose grid in chunks of this many hypotheses (warp ->
     # stack -> tower per chunk, logits concatenated), exact because eval
     # BatchNorm reads running stats: the [B, P, H, W, 2F+2] volume never
@@ -158,6 +165,14 @@ class Config:
     # int8 observation raster: applies to bf16 episodes only (as in the
     # JAX package's episode gating); a no-op in f32 episodes.
     raster_int8: bool = True
+    # The eval episode's 3-D observation: "full" (the whole cloud) or
+    # "compact" (the episode's compacted top-K rows, moved about the FULL
+    # cloud's centroid). Needs a compaction (raster_topk < num_pt); training
+    # episodes always observe the full cloud.
+    obs3d_source: str = "full"
+    # Eval episodes hand an unfused agent the channel-major observation
+    # (the JAX package's CMR_OBS3D_CN=1).
+    obs3d_cn: bool = False
     # Feed the agent's point branch the cloud moved by the current pose
     # estimate instead of the static cloud (same 5 channels).
     pose_aware_observation: bool = False
@@ -187,6 +202,9 @@ class Config:
         if self.fused_stacks not in FUSED_STACKS:
             raise ValueError(f"fused_stacks {self.fused_stacks!r}: choose "
                              f"one of {FUSED_STACKS}")
+        if self.obs3d_source not in OBS3D_SOURCES:
+            raise ValueError(f"obs3d_source {self.obs3d_source!r}: choose "
+                             f"one of {OBS3D_SOURCES}")
 
     @property
     def fused_geo(self) -> bool:
@@ -237,11 +255,11 @@ class Config:
 
     @property
     def degree_r(self) -> int:
-        return 1
+        return 3 if self.is_6_dof else 1
 
     @property
     def degree_t(self) -> int:
-        return 2
+        return 3 if self.is_6_dof else 2
 
     def torch_dtype(self) -> torch.dtype:
         """Activation compute dtype (params stay float32)."""

@@ -173,6 +173,22 @@ def make_structured_raw(rng: np.random.Generator, img_h: int, img_w: int,
     return img.astype(np.float32), pc, K
 
 
+def sample_settings(cfg: Config) -> tuple:
+    """Every ``Config`` value a sample depends on, as ``(name, value)``
+    pairs: a :class:`SyntheticDataset` sample reads its config only
+    through this, so two configs with equal settings give equal samples
+    (the key of ``serve``'s batch cache)."""
+    return (("img_hw", (cfg.cropped_img_h, cfg.cropped_img_w)),
+            ("num_pt", cfg.num_pt), ("num_node", cfg.num_node),
+            ("circle_loss_num", cfg.circle_loss_num),
+            ("t_amplitude", (cfg.p_tx_amplitude, cfg.p_ty_amplitude,
+                             cfg.p_tz_amplitude)),
+            ("r_amplitude", (cfg.p_rx_amplitude, cfg.p_ry_amplitude,
+                             cfg.p_rz_amplitude)),
+            ("nlabel", cfg.nlabel),
+            ("knn_k", cfg.knn_k if cfg.use_gnn_embedding else 0))
+
+
 class SyntheticDataset:
     """Map-style synthetic dataset running the real geometry pipeline.
 
@@ -185,6 +201,7 @@ class SyntheticDataset:
     def __init__(self, cfg: Config, length: int = 64, seed: int = 0,
                  fps_fn=None, nn_fn=None, scene: str = "random"):
         self.cfg = cfg
+        self.settings = dict(sample_settings(cfg))
         self.length = length
         self.seed = seed
         self.fps_fn = fps_fn
@@ -199,7 +216,7 @@ class SyntheticDataset:
         self._epoch = epoch
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        cfg = self.cfg
+        st = self.settings
         # epoch folds into the stream like the real datasets (kitti.py:117);
         # epoch 0 keeps the historical (seed, index) key so fixed-seed
         # benchmarks/demos are unchanged
@@ -208,16 +225,11 @@ class SyntheticDataset:
         rng = np.random.default_rng(key)
         raw = (make_structured_raw if self.scene == "structured"
                else make_synthetic_raw)
-        img, pc, K = raw(rng, cfg.cropped_img_h, cfg.cropped_img_w,
-                         cfg.num_pt)
+        img, pc, K = raw(rng, *st["img_hw"], st["num_pt"])
         return build_geometry_sample(
             rng, img, pc, K,
-            num_node=cfg.num_node,
-            circle_loss_num=cfg.circle_loss_num,
-            t_amplitude=(cfg.p_tx_amplitude, cfg.p_ty_amplitude,
-                         cfg.p_tz_amplitude),
-            r_amplitude=(cfg.p_rx_amplitude, cfg.p_ry_amplitude,
-                         cfg.p_rz_amplitude),
-            nlabel=cfg.nlabel,
-            fps_fn=self.fps_fn, nn_fn=self.nn_fn,
-            knn_k=cfg.knn_k if cfg.use_gnn_embedding else 0)
+            num_node=st["num_node"],
+            circle_loss_num=st["circle_loss_num"],
+            t_amplitude=st["t_amplitude"], r_amplitude=st["r_amplitude"],
+            nlabel=st["nlabel"],
+            fps_fn=self.fps_fn, nn_fn=self.nn_fn, knn_k=st["knn_k"])

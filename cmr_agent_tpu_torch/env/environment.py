@@ -245,7 +245,8 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
                           raster_mode: str = "mega",
                           pose_aware: bool = False,
                           bearing_channels: bool = False,
-                          obs3d_layout: str = "nc"):
+                          obs3d_layout: str = "nc",
+                          obs3d_compact: bool = False):
     """2-D and 3-D observations under the current pose estimate
     (environment.py:384-605).
 
@@ -260,8 +261,15 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
     ``pose_aware`` feeds the 3-D observation the cloud moved by the current
     estimate instead of the static cloud; ``bearing_channels`` appends the
     unit (x, z) bearing of the predicted-overlap sector's centroid under
-    the current estimate as two constant per-point channels. Returns
-    ``(observation_2d [B,H,W,2F], observation_3d [B,N,5 (+2)])``, or with
+    the current estimate as two constant per-point channels.
+    ``obs3d_compact`` (``Config.obs3d_source="compact"``, a compacted state
+    only) builds the 3-D observation from the compacted rows instead of the
+    whole cloud: their points moved about the FULL cloud's centroid, as
+    every disentangled transform is, with ``raster_valid`` as the overlap
+    flag (JAX ``environment.py:576-587``, the cn path; the JAX nc path
+    rotates about the compacted rows' own centroid, ROADMAP "Known
+    places"). Returns ``(observation_2d [B,H,W,2F], observation_3d
+    [B,N,5 (+2)])`` (``[B,K,...]`` compacted), or with
     ``obs3d_layout="cn"`` (the fused agent's) ``observation_3d [B,5 (+2),
     N]``, every per-point intermediate then channel-major.
     """
@@ -270,7 +278,8 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
     if obs3d_layout == "cn":
         return _observation_from_pose_cn(feats, pose, image_h, image_w,
                                          raster_dtype, raster_mode,
-                                         pose_aware, bearing_channels)
+                                         pose_aware, bearing_channels,
+                                         obs3d_compact)
     if obs3d_layout != "nc":
         raise ValueError(f"unknown obs3d_layout {obs3d_layout!r}")
     pc, K = feats["pc"], feats["K"]
@@ -302,6 +311,12 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
             in_cam & overlap, image_h, image_w, compute_dtype=raster_dtype,
             mode="compact" if raster_mode == "compact" else "flat")
     observation_2d = torch.cat([feats["img_geo_feat"], proj_feat], dim=-1)
+    if obs3d_compact and "raster_pc" in feats:
+        pc, overlap = feats["raster_pc"], feats["raster_valid"]
+        mean = mean_full[:, None, :]
+        moved = (torch.einsum("bij,bnj->bni", R, pc - mean) + mean
+                 + t[:, None, :])
+        in_cam = frustum_mask(project_points(moved, K), w=image_w, h=image_h)
     channels = [moved if pose_aware else pc, overlap[..., None].to(pc.dtype),
                 in_cam[..., None].to(pc.dtype)]
     if bearing_channels:
@@ -317,7 +332,8 @@ def observation_from_pose(feats, pose, image_h: int, image_w: int,
 
 def _observation_from_pose_cn(feats, pose, image_h: int, image_w: int,
                               raster_dtype, raster_mode: str,
-                              pose_aware: bool, bearing_channels: bool):
+                              pose_aware: bool, bearing_channels: bool,
+                              obs3d_compact: bool = False):
     """:func:`observation_from_pose` with every per-point intermediate
     channel-major ``[B, C, N]`` (environment.py:508-605). ``feats`` may
     carry ``pcT [B, 3, N]`` (the episode builds it once)."""
@@ -354,6 +370,9 @@ def _observation_from_pose_cn(feats, pose, image_h: int, image_w: int,
             in_cam & overlap, image_h, image_w, compute_dtype=raster_dtype,
             mode="compact" if raster_mode == "compact" else "flat")
     observation_2d = torch.cat([feats["img_geo_feat"], proj_feat], dim=-1)
+    if obs3d_compact and "raster_pcT" in feats:
+        pcT, overlap = feats["raster_pcT"].float(), feats["raster_valid"]
+        movedT, _, in_cam = projectT(pcT)
     channels = [(movedT if pose_aware else pcT).to(dt_),
                 overlap[:, None, :].to(dt_), in_cam[:, None, :].to(dt_)]
     if bearing_channels:
@@ -366,28 +385,36 @@ def _observation_from_pose_cn(feats, pose, image_h: int, image_w: int,
     return observation_2d, torch.cat(channels, dim=1)
 
 
-def apply_action(action_r, action_t, pose_source, r_steps, t_steps):
-    """Left-compose the discrete yaw / (x, z) step onto the pose (4-DoF;
-    environment.py:653-669)."""
-    zero = torch.zeros_like(r_steps[action_r[:, 0]])
-    move_r = torch.stack([zero, r_steps[action_r[:, 0]], zero], dim=-1)
-    move_t = torch.stack([t_steps[action_t[:, 0]], zero,
-                          t_steps[action_t[:, 1]]], dim=-1)
+def apply_action(action_r, action_t, pose_source, r_steps, t_steps,
+                 is_6_dof: bool = False):
+    """Left-compose the discrete step onto the pose (environment.py:653-
+    669): the yaw and the (x, z) step, or with ``is_6_dof`` the three
+    rotation and the three translation steps."""
+    if is_6_dof:
+        move_r, move_t = r_steps[action_r], t_steps[action_t]      # [B, 3]
+    else:
+        zero = torch.zeros_like(r_steps[action_r[:, 0]])
+        move_r = torch.stack([zero, r_steps[action_r[:, 0]], zero], dim=-1)
+        move_t = torch.stack([t_steps[action_t[:, 0]], zero,
+                              t_steps[action_t[:, 1]]], dim=-1)
     pose = pose_source.clone()
     pose[:, :3, :3] = euler_angles_to_matrix_xyz(move_r) @ pose_source[:, :3, :3]
     pose[:, :3, 3] = pose_source[:, :3, 3] + move_t
     return pose
 
 
-def expert_action(pose_source, pose_target, r_steps, t_steps):
-    """Discrete 4-DoF expert action toward the target
+def expert_action(pose_source, pose_target, r_steps, t_steps,
+                  is_6_dof: bool = False):
+    """Discrete expert action toward the target
     (environment.py:608-650; reference environment.py:143-176).
 
     The rotation delta is taken as extrinsic-xyz euler angles; where the
     roll exceeds 3 rad (the R(pi) ambiguity) roll and pitch are zeroed and
     the yaw reflected about +-pi, the reference's disambiguation. Each
     component then takes the nearest step (first on a tie). Returns
-    ``(action_r [B,1] yaw, action_t [B,2] x/z)`` int64 indices.
+    ``(action_r [B,1] yaw, action_t [B,2] x/z)`` int64 indices, or with
+    ``is_6_dof`` ``(action_r [B,3], action_t [B,3])`` over all three axes
+    of the disambiguated delta.
     """
     delta_t = pose_target[:, :3, 3] - pose_source[:, :3, 3]
     delta_R = pose_target[:, :3, :3] @ pose_source[:, :3, :3].transpose(1, 2)
@@ -402,6 +429,8 @@ def expert_action(pose_source, pose_target, r_steps, t_steps):
                            torch.where(flip, zero, delta_r[:, 2])], dim=-1)
     action_r = (delta_r[..., None] - r_steps).abs().argmin(dim=-1)
     action_t = (delta_t[..., None] - t_steps).abs().argmin(dim=-1)
+    if is_6_dof:
+        return action_r, action_t
     return action_r[:, 1:2], action_t[:, 0::2]
 
 

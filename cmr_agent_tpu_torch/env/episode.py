@@ -70,10 +70,13 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     compacting raster of the whole cloud. Training episodes
     (``collect_trajectory``) keep the JAX package's rules for them: under
     the projection-fused modes the ranked top-K and the pixel-id raster,
-    in bf16 or f32 but never int8. With ``cfg.fused_agent`` an eval
-    episode hands the agent channel-major observations (built from ``pcT``,
-    made once here). ``cfg.pose_aware_observation`` and
-    ``cfg.obs_bearing_channels`` shape the 3-D observation of both.
+    in bf16 or f32 but never int8. With ``cfg.fused_agent`` or
+    ``cfg.obs3d_cn`` an eval episode hands the agent channel-major
+    observations (built from ``pcT``, made once here).
+    ``cfg.pose_aware_observation`` and ``cfg.obs_bearing_channels`` shape
+    the 3-D observation of both; with ``cfg.obs3d_source="compact"`` an
+    eval episode given a ``raster_topk`` observes the compacted rows only
+    (episode.py:172). ``cfg.is_6_dof`` takes 3 + 3 actions a step.
 
     ``deterministic=False`` samples actions from ``generator``;
     ``with_expert`` labels each step with :func:`expert_action` toward
@@ -87,7 +90,8 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     step axis: ``state_2d [K,B,H,W,2F]``, ``state_3d [K,B,N,5 (+2)]``,
     ``value`` and ``reward [K,B,1,1]``, ``expert_action_r/t`` (with the
     expert), ``action_r [K,B,1]``, ``action_t [K,B,2]``,
-    ``action_logprob`` and ``entropy [K,B,3]``.
+    ``action_logprob`` and ``entropy [K,B,3]`` (6-DoF: ``[K,B,3]``,
+    ``[K,B,3]``, ``[K,B,6]``).
     """
     device = pose_init.device
     r_steps, t_steps = step_tables(cfg, device)
@@ -104,8 +108,10 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
         raster_mode = "flat" if collect_trajectory else "mega"
     else:
         raster_mode = "compact" if cfg.raster_mode == "compact" else "flat"
-    obs3d_layout = ("cn" if cfg.fused_agent and not collect_trajectory
-                    else "nc")
+    obs3d_layout = ("cn" if (cfg.fused_agent or cfg.obs3d_cn)
+                    and not collect_trajectory else "nc")
+    obs3d_compact = (cfg.obs3d_source == "compact" and not collect_trajectory
+                     and raster_topk is not None)
     if obs3d_layout == "cn":
         state = dict(state, pcT=state["pc"].transpose(1, 2).float()
                      .contiguous())
@@ -115,13 +121,14 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     steps, records = [], []
     for _ in range(cfg.action_num):
         if with_expert:
-            exp_r, exp_t = expert_action(pose, pose_target, r_steps, t_steps)
+            exp_r, exp_t = expert_action(pose, pose_target, r_steps, t_steps,
+                                         cfg.is_6_dof)
         obs2d, obs3d = observation_from_pose(state, pose, cfg.image_h,
                                              cfg.image_w, raster_dtype,
                                              raster_mode,
                                              cfg.pose_aware_observation,
                                              cfg.obs_bearing_channels,
-                                             obs3d_layout)
+                                             obs3d_layout, obs3d_compact)
         r_logits, t_logits, value = agent(obs2d, obs3d)
         action_r, action_t = action_from_logits(
             r_logits, t_logits, generator, deterministic)
@@ -130,7 +137,8 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
                              device=device) < expert_beta
             action_r = torch.where(mix, exp_r, action_r)
             action_t = torch.where(mix, exp_t, action_t)
-        pose = apply_action(action_r, action_t, pose, r_steps, t_steps)
+        pose = apply_action(action_r, action_t, pose, r_steps, t_steps,
+                            cfg.is_6_dof)
         steps.append((r_logits, t_logits))
         if collect_trajectory:
             reward, dist = step_reward(pose, state, dist,

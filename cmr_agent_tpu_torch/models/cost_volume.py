@@ -20,17 +20,19 @@ points the compaction left out (0: the warp is exact).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops import kernels
 from ..ops.geometry import (angle2matrix_sxyz, make_se3, se3_inverse,
                             transform_points)
 from ..ops.losses import softmax_cross_entropy
-from .layers import BatchNorm, Conv2d, GlobalMean
+from .layers import BatchNorm, Conv2d, GlobalMean, running_stats_frozen
 
 
 def sample_pose_grid(r_amplitude: torch.Tensor, t_amplitude: torch.Tensor,
@@ -200,8 +202,10 @@ class IterModel(nn.Module):
         return (sums[..., :f] / counts.clamp_min(1.0)[..., None],
                 sums[..., f])
 
-    def _score(self, poses_c, state, compacted):
-        """Warp + stack + tower for a pose chunk -> logits ``[B, C]``."""
+    def _volume(self, poses_c, state, compacted):
+        """Warp + stack for a pose chunk -> the tower's input ``[B*C, 2F+2,
+        H, W]`` (a channels-last view of the ``[B,C,H,W,2F+2]`` volume;
+        the warp's sums die with this call)."""
         cfg = self.cfg
         h, w, f = cfg.image_h, cfg.image_w, cfg.embed_dim
         b, n_p = poses_c.shape[:2]
@@ -213,8 +217,36 @@ class IterModel(nn.Module):
             occ.reshape(b, n_p, h, w, 1).to(dt),
             state["img_overlap_pred"].to(dt)[:, None, :, :, None].expand(
                 b, n_p, h, w, 1)], dim=-1)                # [B,C,H,W,2F+2]
-        x = vol.reshape(b * n_p, h, w, 2 * f + 2).permute(0, 3, 1, 2)
-        return self.cost_volume_convs(x).reshape(b, n_p).float()
+        return vol.reshape(b * n_p, h, w, 2 * f + 2).permute(0, 3, 1, 2)
+
+    def _score(self, poses_c, state, compacted):
+        """Warp + stack + tower for a pose chunk -> logits ``[B, C]``.
+
+        In ``train()`` mode with ``cfg.cost_volume_remat`` the volume and
+        the tower's first stage, where nearly all the activation memory
+        lies, run as three checkpointed segments (volume + conv, BN +
+        LeakyReLU, conv + LeakyReLU + pool), each recomputed in the
+        backward with BatchNorm's running stats frozen: the backward then
+        holds one segment's activations at a time, and the step leaves the
+        same running stats and parameters as without remat. (One checkpoint
+        around the whole forward would recompute every activation before
+        the backward needs the first, and save nothing at its peak.)"""
+        b, n_p = poses_c.shape[:2]
+        convs = self.cost_volume_convs
+        if not (self.training and self.cfg.cost_volume_remat):
+            x = self._volume(poses_c, state, compacted)
+            return convs(x).reshape(b, n_p).float()
+
+        def remat(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  running_stats_frozen()))
+
+        x = remat(lambda p: convs[0](self._volume(p, state, compacted)),
+                  poses_c)
+        x = remat(convs[1:3], x)
+        x = remat(convs[3:6], x)
+        return convs[6:](x).reshape(b, n_p).float()
 
     def forward(self, state: Dict[str, torch.Tensor],
                 with_loss: bool = True) -> Dict[str, torch.Tensor]:

@@ -34,6 +34,7 @@ parameter tree is the same either way.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -127,6 +128,25 @@ class Dropout(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+_FROZEN_STATS = [False]
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Within it, :class:`BatchNorm` in ``train()`` mode still normalises
+    with the batch's statistics but leaves its running stats alone: the
+    recomputation of a checkpointed forward (``torch.utils.checkpoint``)
+    runs in it, so a rematerialised step moves the running stats once, as
+    the JAX package's ``jax.checkpoint`` of a forward that returns its
+    mutated ``batch_stats`` does."""
+    saved = _FROZEN_STATS[0]
+    _FROZEN_STATS[0] = True
+    try:
+        yield
+    finally:
+        _FROZEN_STATS[0] = saved
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over channel axis ``dim`` with flax semantics.
 
@@ -155,9 +175,11 @@ class BatchNorm(nn.Module):
             axes = [d for d in range(x.ndim) if d != self.dim % x.ndim]
             mean = xf.mean(dim=axes)
             var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            if not _FROZEN_STATS[0]:
+                with torch.no_grad():
+                    self.running_mean.copy_(0.9 * self.running_mean
+                                            + 0.1 * mean)
+                    self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
         else:
             mean, var = self.running_mean, self.running_var
         s = (self.weight / torch.sqrt(var + self.eps))

@@ -30,8 +30,10 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: float,
     """Multiclass focal loss ``-alpha (1 - p)^gamma log(p)`` with kornia's
     ``p = softmax + eps`` and ``one_hot + 1e-6`` target."""
     p = torch.softmax(logits, dim=-1) + eps
-    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype) \
-        + 1e-6
+    # one_hot by comparison: F.one_hot may read the labels back to the
+    # host, which a CUDA graph capture cannot do
+    classes = torch.arange(logits.shape[-1], device=labels.device)
+    onehot = (labels.long()[..., None] == classes).to(logits.dtype) + 1e-6
     focal = -alpha * torch.pow(1.0 - p, gamma) * torch.log(p)
     loss = (onehot * focal).sum(dim=-1)
     if reduction == "none":

@@ -11,6 +11,7 @@ CUDA where there is none raises instead of falling back to the CPU.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -19,6 +20,7 @@ import torch.nn as nn
 
 from .config import Config
 from .data import SyntheticDataset, collate
+from .data.synthetic import sample_settings
 from .env.environment import (alignment_stats, apply_coarse_pose,
                               bearing_init_pose, compose_disentangled,
                               init_poses, nn_alignment_stats)
@@ -96,14 +98,33 @@ def serve_episode(model: MultiHeadModel, agent: CMRAgent, cfg: Config,
                 "pose_target": to_disentangled(pose_tgt, state["pc"])}
 
 
+_HOST_BATCHES: "collections.OrderedDict[tuple, dict]" = \
+    collections.OrderedDict()
+
+
+def _host_batch(cfg: Config, batch_size: int, seed: int) -> dict:
+    """The collated host batch of :func:`synthetic_batch`, kept (the 16
+    used last) for the next call with the same dataset settings
+    (:func:`.data.synthetic.sample_settings`), size and seed: a scene costs
+    the dataset's numpy sampling over its whole cloud."""
+    key = (sample_settings(cfg), batch_size, seed)
+    batch = _HOST_BATCHES.pop(key, None)
+    if batch is None:
+        ds = SyntheticDataset(cfg, length=batch_size, seed=seed)
+        batch = collate([ds[i] for i in range(batch_size)])
+    _HOST_BATCHES[key] = batch
+    while len(_HOST_BATCHES) > 16:
+        _HOST_BATCHES.popitem(last=False)
+    return batch
+
+
 def synthetic_batch(cfg: Config, batch_size: int, device="cuda",
                     seed: int = 0, keys=BATCH_KEYS) -> Dict[str, torch.Tensor]:
     """``keys`` of a batch of the synthetic dataset (seeded with ``seed``)
-    as tensors on ``device``."""
+    as tensors on ``device``, each a copy of its own."""
     dev = resolve_device(device)
-    ds = SyntheticDataset(cfg, length=batch_size, seed=seed)
-    batch_np = collate([ds[i] for i in range(batch_size)])
-    return {k: torch.from_numpy(batch_np[k]).to(dev) for k in keys}
+    batch_np = _host_batch(cfg, batch_size, seed)
+    return {k: torch.from_numpy(batch_np[k]).to(dev, copy=True) for k in keys}
 
 
 def build_workload(cfg: Config, batch_size: int, device="cuda", seed: int = 0

@@ -124,13 +124,15 @@ def load_module_variables(module: torch.nn.Module, cfg: Config, variables,
 
 
 def _module(state) -> torch.nn.Module:
+    """The module of a ``GeoTrainState`` or ``IterTrainState``
+    (``model``) or of an ``AgentTrainState`` (``agent``)."""
     return state.model if hasattr(state, "model") else state.agent
 
 
 def save_train_checkpoint(path: str, state) -> None:
-    """Save a ``GeoTrainState`` or ``AgentTrainState``: ``path/model``
-    holds the module's state and the step, ``path/opt`` the optimizer's
-    state and count."""
+    """Save a ``GeoTrainState``, ``AgentTrainState`` or ``IterTrainState``:
+    ``path/model`` holds the module's state and the step, ``path/opt`` the
+    optimizer's state and count."""
     module = _module(state)
     os.makedirs(path, exist_ok=True)
     torch.save({"module": module.state_dict(), "step": state.step},
@@ -152,7 +154,7 @@ def restore_train_checkpoint(path: str, state) -> Tuple[Any, bool]:
     opt_path = os.path.join(path, "opt")
     if os.path.isfile(opt_path):
         o = torch.load(opt_path, map_location=dev, weights_only=True)
-        state.optimizer.inner.load_state_dict(o["optimizer"])
+        state.optimizer.load_state_dict(o["optimizer"])
         state.optimizer.count = int(o["count"])
         return state, True
     state.optimizer.count = int(m["step"])

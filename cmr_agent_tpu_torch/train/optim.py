@@ -9,6 +9,15 @@ momentum t``); scale by the learning rate of the schedule evaluated at the
 step count BEFORE the increment (the first step uses ``lr(0)``). The moment
 updates are ``torch.optim.Adam`` / ``torch.optim.SGD``, whose arithmetic is
 that chain's; the schedule sets their learning rate before each step.
+
+The capturable form (:meth:`Optimizer.make_capturable`, Adam on CUDA
+parameters only) is for a step captured into a CUDA graph
+(:func:`.train_geo.make_geo_multi_step`): the learning rate lives in a
+device tensor that the host sets before each replay
+(:meth:`Optimizer.set_lr`), every parameter keeps an allocated gradient that
+``zero_grad`` zeroes in place, and Adam runs its ``capturable`` form (the
+same chain; its bias corrections are computed on the card, so its last bits
+may differ from the eager form's).
 """
 
 from __future__ import annotations
@@ -49,7 +58,9 @@ class Optimizer:
 
     ``step()`` applies one update from the parameters' ``.grad`` (a
     parameter without one takes a zero gradient, as the JAX package's
-    dense gradient trees do) and advances ``count``.
+    dense gradient trees do) and advances ``count``. Inside a CUDA graph
+    capture (capturable form only) it leaves the learning rate to the
+    host: :meth:`set_lr` before each replay.
     """
 
     def __init__(self, cfg: Config, params: Iterable[torch.nn.Parameter],
@@ -68,17 +79,77 @@ class Optimizer:
         else:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.count = 0
+        self.lr_tensor = None           # the capturable form's learning rate
 
-    def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+    @property
+    def capturable(self) -> bool:
+        return self.lr_tensor is not None
 
-    def step(self) -> None:
+    def make_capturable(self) -> None:
+        """Switch to the capturable form, in place (idempotent): a device
+        learning rate, Adam's ``capturable`` path with its step counts on
+        the card, and a zero gradient allocated for every parameter."""
+        if self.capturable:
+            return
+        if not isinstance(self.inner, torch.optim.Adam):
+            raise NotImplementedError("the capturable form is Adam's only")
+        dev = self.params[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"the capturable form needs CUDA parameters, "
+                             f"not {dev}")
+        self.lr_tensor = torch.zeros((), dtype=torch.float32, device=dev)
+        self._adopt_capturable()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
-        lr = self.schedule(self.count)
+
+    def _adopt_capturable(self) -> None:
+        """Point every param group at the device learning rate and move
+        Adam's step counts onto the card (also after a state load, which
+        replaces the groups)."""
         for group in self.inner.param_groups:
-            group["lr"] = lr
+            group["capturable"] = True
+            group["lr"] = self.lr_tensor
+        for p in self.params:
+            st = self.inner.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(p.device, torch.float32)
+
+    def load_state_dict(self, state: dict) -> None:
+        """``torch.optim`` state of either form into this one's form."""
+        self.inner.load_state_dict(state)
+        if self.capturable:
+            self._adopt_capturable()
+            return
+        for group in self.inner.param_groups:
+            if group.get("capturable"):
+                group["capturable"] = False
+            group["lr"] = float(group["lr"])
+        for p in self.params:
+            st = self.inner.state.get(p)
+            if st and "step" in st and st["step"].device.type != "cpu":
+                st["step"] = st["step"].cpu()
+
+    def set_lr(self) -> None:
+        """The schedule's learning rate at ``count`` into the groups (or,
+        capturable, into the device tensor a captured step reads)."""
+        lr = self.schedule(self.count)
+        if self.capturable:
+            self.lr_tensor.fill_(lr)
+        else:
+            for group in self.inner.param_groups:
+                group["lr"] = lr
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad(set_to_none=not self.capturable)
+
+    def step(self) -> None:
+        if not self.capturable:
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
+        if not (self.capturable and torch.cuda.is_current_stream_capturing()):
+            self.set_lr()
         self.inner.step()
         self.count += 1

@@ -111,7 +111,9 @@ for name in ("models.cost_volume", "train.train_iter", "env.environment",
              "ops.scatter", "serve", "ops.kernels", "utils.profiling",
              "tools.raster_probe", "tools.episode_trace", "tools.train_probe",
              "cli.common", "cli.test_agent", "cli.test_geo",
+             "cli.train_geo", "cli.train_agent", "cli.train_iter",
              "train.checkpoint", "train.metrics", "train.export",
+             "train.train_geo", "train.train_agent", "train.optim",
              "data.loader", "native"):
     assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))

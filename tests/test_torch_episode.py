@@ -124,9 +124,9 @@ def test_config_refuses_settings_the_port_does_not_serve(setting,
     it serves is accepted and reaches the episode: "pack" one mask-pack
     launch, "compact" one compacting raster per step and no pack, fused
     stacks 4 channel-major chains per step (and, under "all", the geo
-    model's 12 row-major chains)."""
-    refused = {"is_6_dof": TypeError, "obs3d_source": TypeError,
-               "fused_stacks": ValueError}
+    model's 12 row-major chains), ``is_6_dof`` 3 + 3 action logits a step,
+    ``obs3d_source="compact"`` a 3-D observation of ``raster_topk`` rows."""
+    refused = {"fused_stacks": ValueError}
     (name, value), = setting.items()
     if name in refused and value not in ("all", "agent"):
         with pytest.raises(refused[name]):
@@ -136,10 +136,12 @@ def test_config_refuses_settings_the_port_does_not_serve(setting,
         setting = dict(setting, obs_bearing_channels=True)
     cfg = tiny_config(raster_topk=1024, action_num=2, **setting)
     batch, model, agent, episode = serve.build_workload(cfg, 2, device="cpu")
-    seen = {"obs3d": [], "packs": 0, "bearing_inits": 0, "compacts": 0,
-            "chains": 0, "chains_cn": 0}
+    seen = {"obs3d": [], "logits": [], "packs": 0, "bearing_inits": 0,
+            "compacts": 0, "chains": 0, "chains_cn": 0}
     agent.register_forward_pre_hook(
         lambda _m, args: seen["obs3d"].append(args[1]))
+    agent.register_forward_hook(
+        lambda _m, _args, out: seen["logits"].append(out[:2]))
     from cmr_agent_tpu_torch.ops import kernels
 
     def counting(key, fn):
@@ -160,13 +162,20 @@ def test_config_refuses_settings_the_port_does_not_serve(setting,
     first, second = seen["obs3d"]
     fused_agent = name == "fused_stacks"
     assert seen["packs"] == (1 if value == "pack" else 0)
-    assert seen["compacts"] == (cfg.action_num if value == "compact" else 0)
+    assert seen["compacts"] == (cfg.action_num if (name, value) == (
+        "raster_mode", "compact") else 0)
     assert seen["chains_cn"] == (4 * cfg.action_num if fused_agent else 0)
     assert seen["chains"] == (12 if value == "all" else 0)
     assert seen["bearing_inits"] == (1 if name == "bearing_init" else 0)
     # the fused agent reads the channel-major [B, C, N] observation
     channels = first.shape[1] if fused_agent else first.shape[-1]
     assert channels == (7 if cfg.obs_bearing_channels else 5)
+    rows = first.shape[-1] if fused_agent else first.shape[1]
+    assert rows == (1024 if name == "obs3d_source" else cfg.num_pt)
+    dof = (3, 3) if name == "is_6_dof" else (1, 2)
+    for r_logits, t_logits in seen["logits"]:
+        assert (r_logits.shape, t_logits.shape) == ((2, dof[0], 11),
+                                                    (2, dof[1], 11))
     xyz = (lambda o: o[:, :3]) if fused_agent else (lambda o: o[..., :3])
     # the static cloud is the same at every step; the moved one is not
     static = torch.equal(xyz(first), xyz(second))

@@ -50,6 +50,7 @@ from cmr_agent_tpu_torch.cli import test_agent, test_geo
 from cmr_agent_tpu_torch.config import kitti_config, micro_config
 from cmr_agent_tpu_torch.data import SyntheticDataset
 from cmr_agent_tpu_torch.data.loader import DataLoader
+from cmr_agent_tpu_torch.models.agent import CMRAgent
 
 REPO = Path(__file__).resolve().parents[1]
 MICRO = dict(num_pt=2048, num_node=160, num_proxy=32, cropped_img_h=64,
@@ -267,13 +268,26 @@ def test_test_geo_cli_matches_jax(micro_clis):
     ("--device cuda", RuntimeError),            # no card on this host
     ("--dataset kitti", NotImplementedError),   # no dataset reader yet
     ("--dataset nuscenes", NotImplementedError),
-    ("--obs3d-compact", TypeError),             # the port's Config refuses it
+    ("--obs3d-compact", None),                  # accepted: runs
     ("--geo-ckpt checkpoint/iter_kitti/epoch-0-step-10500", FileNotFoundError),
     ("--geo-ckpt geo_feat.pth", NotImplementedError),
 ])
-def test_cli_refusals(micro_clis, extra, error):
+def test_cli_refusals(micro_clis, monkeypatch, extra, error):
+    """Each refusal raises; ``--obs3d-compact`` (``obs3d_source=
+    "compact"``) runs, its agent observing the 1024 compacted rows."""
     argv = ["--device", "cpu", "--dataset", "synthetic",
             "--synthetic-length", "1"] + extra.split()
+    if error is None:
+        monkeypatch.setattr(test_agent, "build_config", lambda args:
+                            kitti_config(raster_topk=1024, **MICRO))
+        rows = []
+        forward = CMRAgent.forward
+        monkeypatch.setattr(CMRAgent, "forward", lambda self, s2, s3: (
+            rows.append(s3.shape[1]), forward(self, s2, s3))[1])
+        m = test_agent.main(argv)
+        assert rows and set(rows) == {1024}, rows
+        assert np.isfinite(m["rte_median_all"]), m
+        return
     with pytest.raises(error):
         test_agent.main(argv)
 
