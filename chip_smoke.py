@@ -12,6 +12,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase eval                   # the E7 evaluation
     python3 chip_smoke.py --phase export                 # the serving export
     python3 chip_smoke.py --phase train                  # the training CLIs
+    python3 chip_smoke.py --phase inputs                 # KITTI / nuScenes
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -209,6 +210,32 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     ``obs3d_source="compact"`` in the nc and the cn layout against its twin
     and each other, with the agent's device time on the compacted and the
     full observation (``[obs3d_compact]``).
+
+21. the reference's own inputs (also alone with ``--phase inputs``): a
+    KITTI odometry tree (sequences 00, 09, 10, 8 frames, both cameras,
+    376 x 1241 images, ``[4, 120000]`` velodyne dumps, sequence 00's
+    calib) and a nuScenes pre-dump (16 train and 16 test triplets of a
+    ``[4, 34720]`` cloud, a 160 x 320 image and K) written from seed 0
+    (``[inputs_trees]``); the first 8 test samples of each against the
+    digests the CPU tests hold (``[inputs_split]``); ``data.smoke
+    --feed-rate 20`` on each train split (lengthened to 200 samples by
+    links) beside the captured geo step's samples/s, with the steady rate
+    after the loader's window (``[inputs_feed]``); the committed weight exports of E7 written as
+    reference ``.pth`` files and loaded through the CLIs' loader, bit-equal
+    to the exports' load (``[pth_import]``); ``cli.train_geo --dataset
+    kitti`` (6 eager steps) and ``--dataset nuscenes`` (3) at B = 8 with
+    steps/s, busy share, peak memory, launches and the host's time between
+    steps, the nuScenes step then under phase 6's gate on a batch of its
+    tree (``[train_geo_kitti]``, ``[train_geo_nuscenes]``); phase 4's serving
+    path at the nuScenes width (40 x 80) on the nuScenes test split in f32
+    and bf16 + int8 against its plain twin, ``cli.test_geo --dataset
+    nuscenes --max-batches 1`` with kernel 7's launches and one IterModel
+    forward against its plain twin (``[nuscenes_serve]``,
+    ``[nuscenes_test_geo]``, ``[nuscenes_itermodel_vs_plain]``);
+    ``cli.test_agent --dataset kitti --max-batches 1`` at E7's flags in
+    bf16 on the ``.pth`` files (``[eval_kitti]``); the geo train step with
+    ``use_gnn_embedding`` at KITTI width, B = 8, on the KITTI tree's host
+    knn, under phase 6's gate (``[gnn_geo]``).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -500,14 +527,19 @@ def compare_episodes(torch, got, want, atol: float, rtol: float = 0.0):
     return compared, max_diff
 
 
-def run_path(torch, kernels, serve, kitti_config, dtype: str):
-    """Phase 4 for one compute dtype; returns (launch counts, pairs/s)."""
+def run_path(torch, kernels, serve, kitti_config, dtype: str, batch=None,
+             profile: bool = True):
+    """Phase 4 for one compute dtype; returns (launch counts, pairs/s).
+    ``kitti_config`` makes the configuration; ``batch`` (default: the
+    workload's synthetic one) is what the episodes read."""
     cfg = kitti_config(compute_dtype=dtype)
     t0 = time.perf_counter()
-    batch, model, agent, episode = serve.build_workload(cfg, B, seed=0)
+    synthetic, model, agent, episode = serve.build_workload(cfg, B, seed=0)
+    batch = synthetic if batch is None else batch
     torch.cuda.synchronize()
     line("workload", dtype=dtype, raster_int8=cfg.raster_int8,
          raster_topk=cfg.episode_raster_topk(),
+         width=f"{cfg.image_h}x{cfg.image_w}",
          build_s=f"{time.perf_counter() - t0:.2f}")
     episode(batch)                                   # warm-up
     torch.cuda.synchronize()
@@ -533,7 +565,10 @@ def run_path(torch, kernels, serve, kitti_config, dtype: str):
     line("throughput", dtype=dtype, pairs_per_s=f"{rate:.3f}",
          episode_s=",".join(f"{t:.4f}" for t in times))
 
-    profile_episode(torch, serve, model, agent, cfg, batch)
+    if profile:
+        profile_episode(torch, serve, model, agent, cfg, batch)
+    if profile and dtype == "float32":
+        check_kernel_rows(torch, lambda: episode(batch))
     # the same episode with the kernels swapped for their plain versions.
     # f32: the kernels differ from them only by the order of f32 atomic
     # sums. bf16: a sum that differs in its last f32 bit can round to the
@@ -580,6 +615,45 @@ def profile_episode(torch, serve, model, agent, cfg, batch) -> None:
     """Device time of one episode by kernel (see :func:`profile_call`)."""
     profile_call(torch, lambda: serve.serve_episode(model, agent, cfg, batch),
                  dtype=cfg.compute_dtype)
+
+
+def check_kernel_rows(torch, fn) -> None:
+    """``[profile_rows]``: the card's rows of one profiled call of ``fn``
+    as ``utils.profiling.kernel_rows`` reads them from the raw events (what
+    every profile of this script prints) against ``key_averages``' device
+    rows of the same profile: the same names and counts, times within
+    1e-6 relative (``key_averages`` takes each row's ends in f64 µs from
+    the trace's start)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmr_agent_tpu_torch.utils.profiling import kernel_rows
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast = kernel_rows(prof.profiler.kineto_results.events())
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = {}
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            continue
+        ms, n = slow.get(e.key, (0.0, 0))
+        slow[e.key] = (ms + getattr(e, "self_device_time_total", getattr(
+            e, "self_cuda_time_total", 0.0)) / 1e3, n + e.count)
+    slow_s = time.perf_counter() - t0
+    worst = max(abs(fast[k][0] - slow[k][0]) / max(slow[k][0], 1e-12)
+                for k in slow) if slow else 0.0
+    line("profile_rows", rows=len(fast), launches=sum(
+        n for _, n in fast.values()), raw_events_s=f"{fast_s:.3f}",
+         key_averages_s=f"{slow_s:.3f}", max_rel_diff=worst)
+    assert fast.keys() == slow.keys() and slow, (fast.keys() ^ slow.keys())
+    assert all(fast[k][1] == slow[k][1] for k in slow)
+    assert worst <= 1e-6, worst
 
 
 def profile_call(torch, fn, unprofiled_ms=None, **tags) -> None:
@@ -3917,7 +3991,9 @@ def recording(torch, kernels, module, *names, after=None):
     function they make runs between two synchronisations with the launch
     counts set to 0 just before it. Yields ``{name: [(seconds, counts),
     ...]}``; the last call's function and arguments are kept under
-    ``(name, "last")``. ``after(name, n)`` runs after the n-th call."""
+    ``(name, "last")``, each call's start and end (``time.perf_counter``)
+    under ``(name, "spans")``. ``after(name, n)`` runs after the n-th
+    call."""
     calls = {n: [] for n in names}
     saved = {n: getattr(module, n) for n in names}
 
@@ -3931,8 +4007,9 @@ def recording(torch, kernels, module, *names, after=None):
                 t0 = time.perf_counter()
                 out = fn(*args)
                 torch.cuda.synchronize()
-                calls[name].append((time.perf_counter() - t0,
-                                    kernels.launch_counts()))
+                t1 = time.perf_counter()
+                calls[name].append((t1 - t0, kernels.launch_counts()))
+                calls.setdefault((name, "spans"), []).append((t0, t1))
                 calls[(name, "last")] = (fn, args)
                 if after is not None:
                     after(name, len(calls[name]))
@@ -4018,6 +4095,7 @@ def run_geo_clis(torch, kernels, tmp: str) -> None:
             device_ms, wall_ms = device_busy(torch, lambda: fn(*args))
         steps_per_call = 1 if label == "eager" else 2
         stats[label] = (device_ms / wall_ms, device_ms / steps_per_call)
+        MEASURED[f"geo_{label}_steps_per_s"] = 1 / step_s
         line("train_geo_cli", mode=label, batch=B, tf32="on",
              steps_per_s_median=f"{1 / step_s:.4f}",
              timed_calls=len(calls) - 1, steps_per_call=steps_per_call,
@@ -4414,6 +4492,582 @@ def run_train(torch, kernels, serve, dev) -> None:
                      f"{torch.cuda.memory_allocated() / 2**30:.3f}"))
 
 
+# ---- phase 21: the reference's own inputs ---------------------------------
+
+KITTI_CALIB_TXT = (
+    "P0: 7.188560000000e+02 0.000000000000e+00 6.071928000000e+02 "
+    "0.000000000000e+00 0.000000000000e+00 7.188560000000e+02 "
+    "1.852157000000e+02 0.000000000000e+00 0.000000000000e+00 "
+    "0.000000000000e+00 1.000000000000e+00 0.000000000000e+00\n"
+    "P1: 7.188560000000e+02 0.000000000000e+00 6.071928000000e+02 "
+    "-3.861448000000e+02 0.000000000000e+00 7.188560000000e+02 "
+    "1.852157000000e+02 0.000000000000e+00 0.000000000000e+00 "
+    "0.000000000000e+00 1.000000000000e+00 0.000000000000e+00\n"
+    "P2: 7.188560000000e+02 0.000000000000e+00 6.071928000000e+02 "
+    "4.538225000000e+01 0.000000000000e+00 7.188560000000e+02 "
+    "1.852157000000e+02 -1.130887000000e-01 0.000000000000e+00 "
+    "0.000000000000e+00 1.000000000000e+00 3.779761000000e-03\n"
+    "P3: 7.188560000000e+02 0.000000000000e+00 6.071928000000e+02 "
+    "-3.372877000000e+02 0.000000000000e+00 7.188560000000e+02 "
+    "1.852157000000e+02 2.369057000000e+00 0.000000000000e+00 "
+    "0.000000000000e+00 1.000000000000e+00 4.915215000000e-03\n"
+    "Tr: 4.276802385584e-04 -9.999672484946e-01 -8.084491683471e-03 "
+    "-1.198459927713e-02 -7.210626507497e-03 8.081198471645e-03 "
+    "-9.999413164504e-01 -5.403984729748e-02 9.999738645903e-01 "
+    "4.859485810390e-04 -7.206933692422e-03 -2.921968648686e-01\n")
+KITTI_TREE = dict(seqs=("00", "09", "10"), frames=8, h=376, w=1241,
+                  n_pts=120000)
+NUSCENES_TREE = dict(count=16, n_pts=34720, h=160, w=320)
+# sha256 of the first 8 test samples of each tree (seed 0) as
+# ``cli.common.build_dataset`` builds them (native host ops); held by
+# tests/test_torch_data.py on the CPU
+INPUTS_SPLIT_SHA256 = {
+    "kitti": "b57bec5e6ea446422f9a5f0143fbca352f14f28e1319a0730bb5bafb09cb400b",
+    "nuscenes":
+        "ccce6e6be3265fec04f4dcbab3a82902ccdbb3af28d01e2dae6fcc0b7e25db7d"}
+INPUTS_SPLIT_N = 8
+
+
+def write_kitti_tree(root: str, seed: int = 0, seqs=KITTI_TREE["seqs"],
+                     frames: int = KITTI_TREE["frames"],
+                     h: int = KITTI_TREE["h"], w: int = KITTI_TREE["w"],
+                     n_pts: int = KITTI_TREE["n_pts"],
+                     data_color: str = "data_odometry_color_npy/",
+                     data_velodyne: str = "data_odometry_velodyne_NWU/"):
+    """A KITTI odometry dump in the reference's layout: ``calib/<seq>/
+    calib.txt`` (sequence 00's real numbers), uint8 ``image_2`` /
+    ``image_3`` frames and ``[4, n_pts]`` f32 velodyne dumps (x forward,
+    the points in a cone ahead of the sensor, intensity in row 3). Each
+    file is drawn from its own generator, so a tree cut to fewer
+    sequences or frames holds the same files."""
+    import os
+    for seq in seqs:
+        cdir = os.path.join(root, "calib", seq)
+        os.makedirs(cdir, exist_ok=True)
+        with open(os.path.join(cdir, "calib.txt"), "w") as f:
+            f.write(KITTI_CALIB_TXT)
+        vdir = os.path.join(root, data_velodyne, "sequences/", seq,
+                            "voxel0.1-SNr0.6")
+        os.makedirs(vdir, exist_ok=True)
+        for cam in (2, 3):
+            os.makedirs(os.path.join(root, data_color, "sequences/", seq,
+                                     f"image_{cam}"), exist_ok=True)
+        for frame in range(frames):
+            for cam in (2, 3):
+                rng = np.random.default_rng((seed, int(seq), frame, cam))
+                img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                np.save(os.path.join(root, data_color, "sequences/", seq,
+                                     f"image_{cam}", "%06d.npy" % frame), img)
+            rng = np.random.default_rng((seed, int(seq), frame, 0))
+            x = rng.uniform(2.0, 60.0, n_pts)
+            pc = np.stack([x, rng.uniform(-0.8, 0.8, n_pts) * x,
+                           rng.uniform(-2.0, 2.0, n_pts),
+                           rng.uniform(0.0, 1.0, n_pts)])
+            np.save(os.path.join(vdir, "%06d.npy" % frame),
+                    pc.astype(np.float32))
+
+
+def write_nuscenes_tree(root: str, seed: int = 0,
+                        count: int = NUSCENES_TREE["count"],
+                        n_pts: int = NUSCENES_TREE["n_pts"],
+                        h: int = NUSCENES_TREE["h"],
+                        w: int = NUSCENES_TREE["w"], subs=("train", "test")):
+    """A nuScenes pre-dump in the reference's layout: ``<sub>/{PC,img,K}/
+    %06d.npy`` triplets of a ``[4, n_pts]`` f32 cloud in the camera frame
+    (z forward, intensity in row 3), an ``h x w`` uint8 image and its K.
+    Each triplet is drawn from its own generator."""
+    import os
+    for sub in subs:
+        for d in ("PC", "img", "K"):
+            os.makedirs(os.path.join(root, sub, d), exist_ok=True)
+        for i in range(count):
+            rng = np.random.default_rng((seed, ("train", "test").index(sub),
+                                         i))
+            z = rng.uniform(2.0, 50.0, n_pts)
+            pc = np.stack([rng.uniform(-0.8, 0.8, n_pts) * z,
+                           rng.uniform(-0.3, 0.3, n_pts) * z, z,
+                           rng.uniform(0.0, 100.0, n_pts)])
+            np.save(os.path.join(root, sub, "PC", "%06d.npy" % i),
+                    pc.astype(np.float32))
+            np.save(os.path.join(root, sub, "img", "%06d.npy" % i),
+                    rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            K = np.array([[253.2, 0.0, w / 2], [0.0, 253.2, h / 2],
+                          [0.0, 0.0, 1.0]])
+            np.save(os.path.join(root, sub, "K", "%06d.npy" % i), K)
+
+
+FEED_SAMPLES = 200
+
+
+def link_train_split(root: str, name: str) -> None:
+    """Lengthen a tree's train split to :data:`FEED_SAMPLES` samples with
+    symbolic links to the files it has (KITTI sequence 00's frames,
+    nuScenes' train triplets), so that an epoch outlasts the feed
+    measurement and the training runs: each sample still draws its own
+    crop, downsample, jitter and perturbation from its index."""
+    import os
+    if name == "kitti":
+        seq = KITTI_TREE["seqs"][0]
+        dirs = [os.path.join(root, "data_odometry_color_npy/", "sequences/",
+                             seq, f"image_{c}") for c in (2, 3)]
+        dirs.append(os.path.join(root, "data_odometry_velodyne_NWU/",
+                                 "sequences/", seq, "voxel0.1-SNr0.6"))
+        want = FEED_SAMPLES // 2
+    else:
+        dirs = [os.path.join(root, "train", d) for d in ("PC", "img", "K")]
+        want = FEED_SAMPLES
+    have = len(os.listdir(dirs[0]))
+    for d in dirs:
+        for i in range(have, want):
+            os.symlink("%06d.npy" % (i % have), os.path.join(d, "%06d.npy" % i))
+
+
+def samples_sha256(samples) -> str:
+    """sha256 over each sample's keys in sorted order: name, dtype, shape
+    and bytes of every array."""
+    import hashlib
+    h = hashlib.sha256()
+    for s in samples:
+        for k in sorted(s):
+            a = np.ascontiguousarray(np.asarray(s[k]))
+            h.update(f"{k}|{a.dtype.str}|{a.shape}|".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def dataset_argv(name: str, root: str) -> list:
+    return ["--dataset", name, "--data-root", root]
+
+
+def inputs_split_digests(roots: dict) -> dict:
+    """``{dataset: sha256}`` of the first :data:`INPUTS_SPLIT_N` test
+    samples of each tree in ``roots`` as the CLIs' ``build_dataset``
+    builds them."""
+    import argparse
+    from cmr_agent_tpu_torch.cli import common
+    out = {}
+    for name, root in roots.items():
+        args = common.add_common_args(argparse.ArgumentParser()).parse_args(
+            dataset_argv(name, root))
+        ds = common.build_dataset(common.build_config(args), args, "test")
+        out[name] = samples_sha256(ds[i] for i in range(INPUTS_SPLIT_N))
+    return out
+
+
+# the reference's pointwise stacks are Conv1d (weights [O, I, 1]); its
+# attention and head MLPs are Linear
+CONV1D_PARTS = (".layer_", ".net.", ".shortcut.", "_fuse_convs.",
+                "pc_overlap_head.", "pc_geo_head.", "state_3d_embed.")
+IMAGE_EMBEDDINGS = "encoder_decoder.encoder.img_transformer.embeddings."
+
+
+def reference_state_dict(torch, state_dict, which: str) -> dict:
+    """A port ``state_dict`` in the reference's ``.pth`` layout: pointwise
+    weights as ``Conv1d [O, I, 1]``, the IterModel tower's as ``Conv3d
+    [O, I, 1, kh, kw]``, a ``num_batches_tracked`` beside each BatchNorm,
+    and for the geo model the image ``Embeddings``' alias keys
+    (``embedding_layers.0`` the MiniResNet, ``.1`` the patchify conv) and
+    its ``position_embeddings``."""
+    out = {}
+    for k, v in state_dict.items():
+        v = v.detach().cpu().clone()
+        if which == "itermodel" and v.ndim == 4:
+            v = v[:, :, None]
+        elif (k.endswith(".weight") and v.ndim == 2
+              and any(p in k for p in CONV1D_PARTS)):
+            v = v[:, :, None]
+        out[k] = v
+        if k.endswith(".running_var"):
+            out[k[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(1000, dtype=torch.long)
+    if which == "multihead":
+        for k in list(out):
+            for j, part in enumerate(("mini_resnet.", "patch_embeddings.")):
+                if k.startswith(IMAGE_EMBEDDINGS + part):
+                    rest = k[len(IMAGE_EMBEDDINGS + part):]
+                    out[f"{IMAGE_EMBEDDINGS}embedding_layers.{j}.{rest}"] = \
+                        out[k].clone()
+        out[IMAGE_EMBEDDINGS + "position_embeddings"] = torch.zeros(1, 80, 64)
+    return out
+
+
+# numbers an earlier phase measured in this process, for a later one to
+# print beside its own
+MEASURED = {}
+INPUT_KITTI_STEPS, INPUT_NUSC_STEPS = 6, 3
+
+
+def inputs_cli_argv(name: str, root: str, tmp: str, dev, *extra) -> list:
+    import os
+    return dataset_argv(name, root) + [
+        "--device", str(dev), "--logdir", os.path.join(tmp, "log"),
+        "--ckpt-dir", os.path.join(tmp, "ckpt_" + name)] + list(extra)
+
+
+def check_inputs_split(roots: dict) -> None:
+    """``[inputs_split]``: the first 8 test samples of each tree, built on
+    this host as the CLIs build them, against the digests the CPU tests
+    hold (``tests/test_torch_data.py``)."""
+    t0 = time.perf_counter()
+    got = inputs_split_digests(roots)
+    for name, digest in got.items():
+        line("inputs_split", dataset=name, samples=INPUTS_SPLIT_N,
+             sha256=digest,
+             equal_to_the_cpu_digest=digest == INPUTS_SPLIT_SHA256[name],
+             seconds=f"{time.perf_counter() - t0:.2f}")
+    assert got == INPUTS_SPLIT_SHA256, got
+
+
+def check_inputs_feed(roots: dict) -> None:
+    """``[inputs_feed]``: ``data.smoke --feed-rate 20`` on each tree's train
+    split (lengthened, :func:`link_train_split`) through the training CLIs'
+    loader (its default workers, a process pool), beside the captured geo
+    step's samples/s (null, and no verdict, where phase 20 did not run in
+    this process). The smoke's figure times the 20 batches after a
+    warm-up batch, and the batches the pool finished during the warm-up
+    (up to its window of tasks in flight) count in it; the steady rate
+    takes the batches after that window, from each batch's arrival."""
+    import os
+    from cmr_agent_tpu_torch.cli import common
+    from cmr_agent_tpu_torch.data import smoke
+    graph = MEASURED.get("geo_graph_steps_per_s")
+    make = common.make_loader
+    for name in ("kitti", "nuscenes"):
+        arrivals, window = [], []
+
+        class Timed:
+            """The CLIs' loader, noting when each batch arrives."""
+
+            def __init__(self, loader):
+                self.loader = loader
+                window.append(max(loader.prefetch, loader.num_workers))
+
+            def __getattr__(self, attr):
+                return getattr(self.loader, attr)
+
+            def __len__(self):
+                return len(self.loader)
+
+            def __iter__(self):
+                for batch in self.loader:
+                    arrivals.append(time.perf_counter())
+                    yield batch
+
+        common.make_loader = lambda *a, **k: Timed(make(*a, **k))
+        try:
+            rate, lines = run_cli("inputs_feed_cli", smoke.main, dataset_argv(
+                name, roots[name]) + ["--feed-rate", "20"])
+        finally:
+            common.make_loader = make
+        loader = next(ln for ln in lines if ln.startswith("loader:"))
+        timed_line = next(ln for ln in lines if ln.startswith("feed rate"))
+        steady = arrivals[window[0] + 1:]
+        steady_rate = (B * (len(steady) - 1) / (steady[-1] - steady[0])
+                       if len(steady) > 1 else float("nan"))
+        line("inputs_feed", dataset=name, split="train", batch=B,
+             samples_per_s=f"{rate:.2f}", timed=repr(timed_line),
+             steady_samples_per_s=f"{steady_rate:.2f}",
+             steady_batches=len(steady) - 1, loader=repr(loader),
+             host_cores=os.cpu_count(),
+             geo_graph_samples_per_s=(f"{graph * B:.2f}" if graph
+                                      else "null"),
+             steady_feeds_the_graph=(steady_rate >= graph * B if graph
+                                     else "null"))
+        assert rate > 0 and len(steady) > 1, (lines, len(arrivals))
+
+
+def run_inputs_train_geo(torch, kernels, roots: dict, tmp: str, dev,
+                         name: str) -> None:
+    """``[train_geo_<name>]``: ``cli.train_geo`` on the tree for 6 (KITTI)
+    or 3 (nuScenes) eager steps at B = 8, the CLIs' TF32: steps/s, busy
+    share, peak memory, launches per step and the host's time between two
+    steps (the loader's wait, the batch's copy, logging); on nuScenes then
+    phase 6's gate on a batch of the tree (phase 6 holds KITTI's width)."""
+    from cmr_agent_tpu_torch.cli import train_geo as cli
+    from cmr_agent_tpu_torch.cli.common import tf32_precision, to_device
+    steps = INPUT_KITTI_STEPS if name == "kitti" else INPUT_NUSC_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(torch, kernels, cli, "make_geo_train_step") as rec:
+        state, lines = run_cli(f"train_geo_{name}_cli", cli.main,
+                               inputs_cli_argv(name, roots[name], tmp, dev,
+                                               "--steps", str(steps)))
+    wall = time.perf_counter() - t0
+    calls = rec["make_geo_train_step"]
+    spans = rec[("make_geo_train_step", "spans")]
+    fn, args = rec[("make_geo_train_step", "last")]
+    assert any(ln.startswith("[val] step 0 loss") for ln in lines), lines
+    assert len(calls) == steps and state.step == steps, (len(calls),
+                                                         state.step)
+    per_step = calls[-1][1]
+    assert all(per_step[k] > 0 for k in GEO_STEP_KERNELS), per_step
+    step_s = statistics.median(t for t, _ in calls[1:])
+    gaps = [b[0] - a[1] for a, b in zip(spans[1:], spans[2:])]
+    with tf32_precision():
+        device_ms, wall_ms = device_busy(torch, lambda: fn(*args))
+    batch = args[1]
+    cfg = common_config(name, roots[name])
+    line(f"train_geo_{name}", batch=B, tf32="on", steps=steps,
+         width=f"{cfg.image_h}x{cfg.image_w}",
+         steps_per_s_median=f"{1 / step_s:.4f}",
+         step_ms=",".join(f"{t * 1e3:.2f}" for t, _ in calls),
+         host_ms_between_steps=",".join(f"{g * 1e3:.2f}" for g in gaps),
+         host_ms_between_steps_median=(
+             f"{statistics.median(gaps) * 1e3:.2f}" if gaps else "none"),
+         busy_share=f"{device_ms / wall_ms:.3f}",
+         device_ms_per_step=f"{device_ms:.2f}", run_s=f"{wall:.2f}",
+         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         **{f"launches_{k}": v for k, v in per_step.items() if v})
+    del state, fn, args, rec
+    if name == "nuscenes":
+        # the KITTI width's step is held by phase 6; this is the new one
+        compare_geo_twins(torch, kernels, cfg, batch, dev)
+
+
+def common_config(name: str, root: str, **over):
+    """The CLIs' configuration of ``--dataset name --data-root root``."""
+    from cmr_agent_tpu_torch.config import kitti_config, nuscenes_config
+    return (kitti_config if name == "kitti" else nuscenes_config)(root,
+                                                                  **over)
+
+
+def tree_batch(torch, cfg, mode: str, dev) -> dict:
+    """The first ``B`` samples of the ``mode`` split of ``cfg``'s tree,
+    collated and on ``dev`` (the CLIs' dataset and host ops)."""
+    import argparse
+    from cmr_agent_tpu_torch.cli import common
+    from cmr_agent_tpu_torch.data import collate
+    args = argparse.Namespace(dataset=cfg.name, tiny=False)
+    ds = common.build_dataset(cfg, args, mode)
+    return common.to_device(collate([ds[i] for i in range(B)]), dev)
+
+
+def run_nuscenes_serve(torch, kernels, serve, roots: dict, dev) -> None:
+    """``[nuscenes_serve]``: phase 4's serving path (geo forward + 10-step
+    episode, B = 8) at ``nuscenes_config`` width on the nuScenes test
+    split, f32 and bf16 + int8, against its plain twin under phase 4's
+    gates; then ``cli.test_geo --dataset nuscenes --max-batches 1`` at the
+    committed weights with its launches, and one IterModel forward on a
+    B = 8 batch of the split against its plain twin (phase 9's gate)."""
+    import argparse
+    from cmr_agent_tpu_torch.cli import common, test_geo
+    from cmr_agent_tpu_torch.models.cost_volume import IterModel
+    from cmr_agent_tpu_torch.train.train_iter import iter_model_state
+    root = roots["nuscenes"]
+    for dtype in ("float32", "bfloat16"):
+        cfg = common_config("nuscenes", root, compute_dtype=dtype)
+        batch = {k: v for k, v in tree_batch(torch, cfg, "test", dev).items()
+                 if k in serve.BATCH_KEYS}
+        counts, rate = run_path(torch, kernels, serve,
+                                lambda **kw: common_config("nuscenes", root,
+                                                           **kw),
+                                dtype, batch=batch, profile=False)
+        line("nuscenes_serve", dtype=dtype, width=f"{cfg.image_h}x"
+             f"{cfg.image_w}", pairs_per_s=f"{rate:.3f}",
+             **{f"launches_{k}": v for k, v in counts.items() if v})
+    argv = (dataset_argv("nuscenes", root)
+            + ["--device", str(dev), "--max-batches", "1", "--geo-ckpt",
+               "runs_r4/geo_pi", "--iter-ckpt",
+               "checkpoint/iter_kitti/epoch-1-step-10000", "--unmasked-warp"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, _ = run_cli("nuscenes_test_geo_cli", test_geo.main, argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    line("nuscenes_test_geo", seconds=f"{time.perf_counter() - t0:.2f}",
+         num_samples=out["num_samples"],
+         **{f"launches_{k}": v for k, v in counts.items() if v})
+    assert out["num_samples"] == 1 and counts["segment_sum_shared"] > 0, (
+        out, counts)
+    assert all(np.isfinite(v) for v in out.values()), out
+    cfg = common_config("nuscenes", root, cost_volume_unmasked=True)
+    geo = common.load_geo_variables(
+        cfg, argparse.Namespace(geo_ckpt="runs_r4/geo_pi"), dev)
+    iter_model = common.load_model(
+        cfg, IterModel(cfg), "checkpoint/iter_kitti/epoch-1-step-10000",
+        "itermodel", "iter", dev)
+    batch = tree_batch(torch, cfg, "test", dev)
+    with torch.no_grad():
+        st = iter_model_state(geo(batch), batch)
+        kernels.reset_launch_counts()
+        got, t = timed(torch, lambda: iter_model(st, with_loss=False))
+        counts = kernels.launch_counts()
+        with plain_kernels(kernels):
+            want = iter_model(st, with_loss=False)
+    logits, wl = got["cost_volume_logits"], want["cost_volume_logits"]
+    diff = (logits - wl).abs().max().item()
+    line("nuscenes_itermodel_vs_plain", batch=B, forward_ms=f"{t * 1e3:.2f}",
+         launches_segment_sum_shared=counts["segment_sum_shared"],
+         max_logit_diff=diff, logit_absmax=wl.abs().max().item())
+    assert counts["segment_sum_shared"] > 0, counts
+    torch.testing.assert_close(logits, wl, rtol=2e-4, atol=2e-5)
+
+
+def write_reference_pths(torch, tmp: str) -> dict:
+    """The committed weight exports of E7 as reference-layout ``.pth``
+    files: ``{orbax path: .pth path}``, with the state each export loads
+    into its module (the reference the import is held to)."""
+    import os
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.models.agent import CMRAgent
+    from cmr_agent_tpu_torch.models.cost_volume import IterModel
+    from cmr_agent_tpu_torch.models.multi_head import MultiHeadModel
+    from cmr_agent_tpu_torch.train import checkpoint
+    cfg = kitti_config(**FLAGSHIP_CFG)
+    make = {"multihead": MultiHeadModel, "agent": CMRAgent,
+            "itermodel": IterModel}
+    out = {}
+    for stem, entry in sorted(checkpoint.manifest().items()):
+        which = ("agent" if stem.startswith("agent") else "itermodel"
+                 if stem.startswith("iter") else "multihead")
+        module = checkpoint.load_module_variables(
+            make[which](cfg), cfg, checkpoint.restore_model_variables(
+                str(checkpoint.WEIGHTS_DIR / entry["file"])), which)
+        path = os.path.join(tmp, stem + ".pth")
+        torch.save(reference_state_dict(torch, module.state_dict(), which),
+                   path)
+        out[entry["orbax"]] = (path, which, module.state_dict())
+    return out
+
+
+def check_pth_import(torch, pths: dict, dev) -> None:
+    """``[pth_import]``: each reference ``.pth`` loaded through the CLIs'
+    loader (``cli.common.load_model``, behind every checkpoint flag) equals
+    its weight export's load, tensor for tensor, bit for bit."""
+    import os
+    from cmr_agent_tpu_torch.cli import common
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.models.agent import CMRAgent
+    from cmr_agent_tpu_torch.models.cost_volume import IterModel
+    from cmr_agent_tpu_torch.models.multi_head import MultiHeadModel
+    cfg = kitti_config(**FLAGSHIP_CFG)
+    make = {"multihead": MultiHeadModel, "agent": CMRAgent,
+            "itermodel": IterModel}
+    for orbax, (path, which, want) in pths.items():
+        t0 = time.perf_counter()
+        got = common.load_model(cfg, make[which](cfg), path, which, which,
+                                dev).state_dict()
+        torch.cuda.synchronize()
+        same = got.keys() == want.keys() and all(
+            torch.equal(v.cpu(), want[k]) for k, v in got.items())
+        line("pth_import", pth=os.path.basename(path), replaces=orbax,
+             which=which, tensors=len(got), bytes=os.path.getsize(path),
+             load_s=f"{time.perf_counter() - t0:.3f}", bit_equal=same)
+        assert same, path
+
+
+def run_eval_kitti(torch, kernels, roots: dict, pths: dict, dev) -> None:
+    """``[eval_kitti]``: ``cli.test_agent --dataset kitti --max-batches 1``
+    at E7's flags in bf16, every checkpoint flag given its reference
+    ``.pth``: launches and s/pair (random scenes: no accuracy claim)."""
+    from cmr_agent_tpu_torch.cli import test_agent
+    argv = e7_argv(dev)
+    i = argv.index("--dataset")
+    argv[i:i + 2] = dataset_argv("kitti", roots["kitti"])
+    for flag in ("--geo-ckpt", "--fine-geo-ckpt", "--agent-ckpt",
+                 "--iter-ckpt"):
+        j = argv.index(flag)
+        argv[j + 1] = pths[argv[j + 1]][0]
+    argv += ["--max-batches", "1"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, lines = run_cli("eval_kitti_cli", test_agent.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert sum("from" in ln and ".pth" in ln for ln in lines) == 4, lines
+    line("eval_kitti", dtype="bfloat16", pairs=out["num_samples"],
+         run_s=f"{wall:.2f}", s_per_pair=f"{wall / out['num_samples']:.3f}",
+         registration_recall=out["registration_recall"],
+         **{f"launches_{k}": v for k, v in counts.items() if v})
+    assert out["num_samples"] == B, out
+    assert all(counts[k] > 0 for k in EVAL_KERNELS), counts
+
+
+def run_gnn_geo(torch, kernels, roots: dict, dev) -> None:
+    """``[gnn_geo]``: the geo train step with ``use_gnn_embedding`` at KITTI
+    width, B = 8, f32, on a batch of the KITTI tree with its host knn
+    (``pc_knn``, k = 16): launches, peak memory, steps/s; then phase 6's
+    gate (gradients and three losses against the plain twin)."""
+    from cmr_agent_tpu_torch.train import train_geo
+    cfg = common_config("kitti", roots["kitti"], use_gnn_embedding=True)
+    t0 = time.perf_counter()
+    batch = tree_batch(torch, cfg, "train", dev)
+    batch_s = time.perf_counter() - t0
+    assert tuple(batch["pc_knn"].shape) == (B, N_PT, KNN_K)
+    step = train_geo.make_geo_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = train_geo.create_geo_state(cfg, dev, seed=0)
+    step(state, batch, gen)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    metrics, _ = timed(torch, lambda: step(state, batch, gen))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = [timed(torch, lambda: step(state, batch, gen))[1]
+             for _ in range(3)]
+    assert all(torch.isfinite(v) for v in metrics.values()), metrics
+    assert all(counts[k] > 0 for k in GEO_STEP_KERNELS), counts
+    line("gnn_geo", batch=B, knn_k=cfg.knn_k, host_batch_s=f"{batch_s:.2f}",
+         steps_per_s=f"{1 / statistics.median(times):.4f}",
+         step_s=",".join(f"{t:.4f}" for t in times),
+         peak_gib=f"{peak / 2**30:.3f}",
+         gnn_params=sum(p.numel() for n, p in state.model.named_parameters()
+                        if ".mini_gnn." in n or ".pos_embed_" in n),
+         **{f"launches_{k}": v for k, v in counts.items() if v})
+    del state, metrics
+    torch.cuda.empty_cache()
+    compare_geo_twins(torch, kernels, cfg, batch, dev)
+
+
+def run_inputs(torch, kernels, serve, dev) -> None:
+    """Phase 21: the reference's own inputs (see the module docstring)."""
+    import gc
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inputs_") as tmp:
+        roots = {"kitti": os.path.join(tmp, "kitti"),
+                 "nuscenes": os.path.join(tmp, "nuscenes")}
+        t0 = time.perf_counter()
+        write_kitti_tree(roots["kitti"])
+        write_nuscenes_tree(roots["nuscenes"])
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        for name, root in roots.items():
+            link_train_split(root, name)
+        line("inputs_trees", bytes=size,
+             seconds=f"{time.perf_counter() - t0:.2f}",
+             kitti=repr(KITTI_TREE), nuscenes=repr(NUSCENES_TREE),
+             train_samples_linked=FEED_SAMPLES)
+        pths = {}
+        for name, fn in (
+                ("inputs_split", lambda: check_inputs_split(roots)),
+                ("inputs_feed", lambda: check_inputs_feed(roots)),
+                ("pth_import", lambda: (pths.update(
+                    write_reference_pths(torch, tmp)),
+                    check_pth_import(torch, pths, dev))),
+                ("train_geo_kitti", lambda: run_inputs_train_geo(
+                    torch, kernels, roots, tmp, dev, "kitti")),
+                ("train_geo_nuscenes", lambda: run_inputs_train_geo(
+                    torch, kernels, roots, tmp, dev, "nuscenes")),
+                ("nuscenes_serve", lambda: run_nuscenes_serve(
+                    torch, kernels, serve, roots, dev)),
+                ("eval_kitti", lambda: run_eval_kitti(torch, kernels, roots,
+                                                      pths, dev)),
+                ("gnn_geo", lambda: run_gnn_geo(torch, kernels, roots,
+                                                dev))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            line("inputs_part", name=name,
+                 seconds=f"{time.perf_counter() - t0:.1f}",
+                 allocated_gib_after=(
+                     f"{torch.cuda.memory_allocated() / 2**30:.3f}"))
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -4424,7 +5078,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     phases 8 and 14, "factored" kernel 6b and the raster probes from phase
     15, "eval" phase 18 (the E7 evaluation), "export" phase 19 (the
     composed artifact at ``hypotheses`` candidates), "train" phase 20 (the
-    training entry points). Returns the number of repeats that failed
+    training entry points), "inputs" phase 21 (the reference's inputs).
+    Returns the number of repeats that failed
     their gate."""
     failed = 0
     if phase == "train":
@@ -4457,6 +5112,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_export(torch, hypotheses)
             elif phase == "train":
                 run_train(torch, kernels, serve, dev)
+            elif phase == "inputs":
+                run_inputs(torch, kernels, serve, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -4478,7 +5135,7 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval|export|train [--repeat N] [--hypotheses K]``
+    factored|eval|export|train|inputs [--repeat N] [--hypotheses K]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate); ``--hypotheses`` is the composed
     artifact's K under ``--phase export`` (13, E7's)."""
@@ -4487,7 +5144,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
-                             "factored", "eval", "export", "train"),
+                             "factored", "eval", "export", "train",
+                             "inputs"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--hypotheses", type=int, default=13)
@@ -4543,33 +5201,48 @@ def main(argv=None) -> int:
     run_iter_worker(torch)
     line("train_part", name="train_iter_cli_plain",
          seconds=f"{time.perf_counter() - t0:.1f}")
+    stamp = [time.perf_counter()]
+
+    def phase_done(phases: str) -> None:
+        now = time.perf_counter()
+        line("phase_seconds", phases=phases, seconds=f"{now - stamp[0]:.1f}")
+        stamp[0] = now
+
     rows = check_kernels(torch, kernels, dev)
+    phase_done("3")
     counts, _ = run_path(torch, kernels, serve, kitti_config, "float32")
     bf16_counts, _ = run_path(torch, kernels, serve, kitti_config, "bfloat16")
+    phase_done("4")
 
     train_rows, _ = check_train_kernels(torch, kernels, serve, kitti_config,
                                         dev)
     rows.update(train_rows)
+    phase_done("5")
     geo_counts, geo_state, train_batch = run_geo_train(
         torch, kernels, serve, kitti_config(), dev)
+    phase_done("6")
     agent_counts = run_agent_train(torch, kernels, kitti_config(),
                                    geo_state.model, train_batch, dev)
     del geo_state, train_batch
     torch.cuda.empty_cache()
+    phase_done("7")
 
     rows.update(check_compose_kernels(torch, kernels, serve, kitti_config,
                                       dev))
     run_itermodel(torch, kernels, serve, kitti_config)
     torch.cuda.empty_cache()
+    phase_done("8-9")
     composed_counts = run_composed(torch, kernels, serve, kitti_config,
                                    "float32")
     torch.cuda.empty_cache()
     run_composed(torch, kernels, serve, kitti_config, "bfloat16")
     torch.cuda.empty_cache()
+    phase_done("10")
     pack_counts = run_packed_episode(torch, kernels, serve, kitti_config,
                                      "pack")
     run_packed_episode(torch, kernels, serve, kitti_config, "mega")
     torch.cuda.empty_cache()
+    phase_done("11")
 
     t0 = time.perf_counter()
     rows.update(check_chain_kernels(torch, kernels, dev))
@@ -4612,6 +5285,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_train(torch, kernels, serve, dev)
     line("fourteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_inputs(torch, kernels, serve, dev)
+    line("fifteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
     # agent training run, one composed request, the "pack" episode, the

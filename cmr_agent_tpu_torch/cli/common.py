@@ -15,10 +15,14 @@ Differences from the JAX package's CLIs:
   (:func:`refuse_bf16_training`, ROADMAP A.5), and their f32 matmuls and
   convolutions run at TF32 (:func:`tf32_precision`), where PyTorch's own
   default differs between the two (matmuls off, convolutions on);
-* ``--dataset synthetic`` is served; ``kitti`` and ``nuscenes`` raise
-  (ROADMAP A.6), and so does a reference ``.pth`` checkpoint;
 * checkpoints are the weight exports of :mod:`..train.checkpoint`, found
-  from the Orbax paths the JAX package's commands name.
+  from the Orbax paths the JAX package's commands name, or the
+  reference's ``.pth`` files (:func:`..train.convert.torch_to_state_dict`),
+  wherever the JAX package's CLIs take one.
+
+``--dataset kitti`` and ``--dataset nuscenes`` read the reference's dumps
+under ``--data-root`` (:mod:`..data.kitti`, :mod:`..data.nuscenes`);
+``synthetic`` (or ``--tiny``) makes scenes from a seed.
 
 ``--raster-int8`` stays ``store_true`` as in the JAX package, so the same
 command means the same in both; like there, it cannot turn the ``Config``
@@ -36,7 +40,7 @@ import random
 import numpy as np
 import torch
 
-from ..config import Config, kitti_config, tiny_config
+from ..config import Config, kitti_config, nuscenes_config, tiny_config
 
 
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -145,8 +149,7 @@ def build_config(args) -> Config:
     if args.tiny:
         return tiny_config(**overrides)
     if args.dataset == "nuscenes":
-        raise NotImplementedError("the port has no nuScenes configuration "
-                                  "yet (ROADMAP A.6)")
+        return nuscenes_config(args.data_root, **overrides)
     return kitti_config(args.data_root, **overrides)
 
 
@@ -194,14 +197,15 @@ def apply_obs_overrides(cfg: Config, args) -> Config:
 
 
 def build_dataset(cfg: Config, args, mode: str):
-    """The ``mode`` ("train", "val", "test") split: the synthetic dataset
-    with seed 0 / 1 / 2 and the native host ops, as the JAX package builds
-    it, so both packages evaluate the same scenes."""
-    from ..data import SyntheticDataset
+    """The ``mode`` ("train", "val", "test") split with the native host
+    ops, as the JAX package builds it, so both packages read the same
+    scenes: the synthetic dataset with seed 0 / 1 / 2, or the KITTI or
+    nuScenes dump under ``cfg.dataset_root``."""
+    from ..data import KittiDataset, NuScenesDataset, SyntheticDataset
     from ..native import get_fast_host_ops
 
+    fps_fn, nn_fn = get_fast_host_ops()
     if args.dataset == "synthetic" or args.tiny:
-        fps_fn, nn_fn = get_fast_host_ops()
         seed = {"train": 0, "val": 1, "test": 2}[mode]
         length = args.synthetic_length
         if mode != "train" and getattr(args, "val_length", 0):
@@ -210,8 +214,9 @@ def build_dataset(cfg: Config, args, mode: str):
                                 fps_fn=fps_fn, nn_fn=nn_fn,
                                 scene=getattr(args, "synthetic_scene",
                                               "random"))
-    raise NotImplementedError(f"--dataset {args.dataset}: the port reads "
-                              "no dataset from disk yet (ROADMAP A.6)")
+    if args.dataset == "nuscenes":
+        return NuScenesDataset(cfg, mode, fps_fn=fps_fn, nn_fn=nn_fn)
+    return KittiDataset(cfg, mode, fps_fn=fps_fn, nn_fn=nn_fn)
 
 
 def make_loader(cfg: Config, args, dataset, *, batch_size: int,
@@ -236,6 +241,15 @@ def make_loader(cfg: Config, args, dataset, *, batch_size: int,
                       use_processes=use_processes)
 
 
+def require_batches(loader) -> None:
+    """Raise ``StopIteration`` where ``loader`` yields no batch (an empty or
+    missing ``--data-root``), as the JAX package's evaluation CLIs do when
+    they take their first batch."""
+    if len(loader) == 0:
+        raise StopIteration(f"the {len(loader.dataset)}-sample split gives "
+                            f"no batch of {loader.batch_size}")
+
+
 def set_seed(seed: int) -> None:
     """Seed the host's generators and torch's."""
     random.seed(seed)
@@ -251,19 +265,20 @@ def to_device(batch, device) -> dict:
 
 def load_model(cfg: Config, module: torch.nn.Module, ckpt: str, which: str,
                what: str, device) -> torch.nn.Module:
-    """``module`` with the weights of checkpoint ``ckpt`` (a weight export
-    or the Orbax tree it came from), or, with no ``ckpt``, random weights
-    from seed 0 after a WARNING, as the JAX package's CLIs do; on
-    ``device``, in eval mode."""
+    """``module`` with the weights of checkpoint ``ckpt`` (a reference
+    ``.pth``, a weight export or the Orbax tree it came from), or, with no
+    ``ckpt``, random weights from seed 0 after a WARNING, as the JAX
+    package's CLIs do; on ``device``, in eval mode."""
     from ..serve import init_random_
     from ..train.checkpoint import (load_module_variables,
                                     restore_model_variables)
+    from ..train.convert import torch_to_state_dict
 
     if ckpt.endswith(".pth"):
-        raise NotImplementedError(
-            f"{ckpt}: the reference's .pth import is not ported yet "
-            "(ROADMAP A.1)")
-    if ckpt:
+        module.load_state_dict(torch_to_state_dict(cfg, ckpt, which),
+                               strict=True)
+        print(f"loaded {what} checkpoint from {ckpt}")
+    elif ckpt:
         load_module_variables(module, cfg, restore_model_variables(ckpt),
                               which)
         print(f"loaded {what} checkpoint from {ckpt}")

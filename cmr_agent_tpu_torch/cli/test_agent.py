@@ -40,7 +40,8 @@ from ..train.metrics import registration_metrics
 from ..train.train_iter import iter_model_state
 from .common import (add_common_args, apply_obs_overrides, build_config,
                      build_dataset, load_geo_variables, load_model,
-                     make_loader, set_seed, to_device)
+                     make_loader, require_batches, set_seed,
+                     to_device)
 
 STATS = ("smooth_mean", "sum_norm", "mean_valid", "frac_valid",
          "above50_norm", "above70_norm", "ir_smooth", "ir_mean", "ir_norm",
@@ -191,6 +192,7 @@ def prepare(argv=None):
     test_ds = build_dataset(cfg, args, "test")
     loader = make_loader(cfg, args, test_ds,
                          batch_size=args.eval_batch_size)
+    require_batches(loader)
 
     geo = load_geo_variables(cfg, args, dev)
     fine_geo = geo

@@ -29,7 +29,8 @@ from ..train.train_geo import make_geo_forward
 from ..train.train_iter import iter_model_state
 from .common import (add_common_args, apply_obs_overrides, build_config,
                      build_dataset, load_geo_variables, load_model,
-                     make_loader, set_seed, to_device)
+                     make_loader, require_batches, set_seed,
+                     to_device)
 
 
 def main(argv=None):
@@ -57,6 +58,7 @@ def main(argv=None):
 
     test_ds = build_dataset(cfg, args, "test")
     loader = make_loader(cfg, args, test_ds, batch_size=1)
+    require_batches(loader)
 
     geo = load_geo_variables(cfg, args, dev)
     geo_forward = make_geo_forward(cfg)

@@ -289,6 +289,27 @@ def kitti_config(data_root: str = "", **overrides) -> Config:
     return Config(name="kitti", dataset_root=data_root, **overrides)
 
 
+def nuscenes_config(data_root: str = "", **overrides) -> Config:
+    """NuScenes configuration (reference: config/NuScenesConfig.py).
+
+    Differences from KITTI (NuScenesConfig.py:23-49): narrower crop (320 px
+    wide -> 40x80 fused map), val every 1000 steps, 30 epochs, StepLR step 2,
+    16 loader workers. The cost-volume grid stays nlabel=9, as in the JAX
+    package: the reference hardcodes 9 in IterModel (IterModel.py:28).
+    """
+    defaults = dict(
+        name="nuscenes",
+        dataset_root=data_root,
+        cropped_img_w=320,
+        val_interval=1000,
+        epoch=30,
+        step_size=2,
+        num_workers=16,
+    )
+    defaults.update(overrides)
+    return Config(**defaults)
+
+
 def tiny_config(**overrides) -> Config:
     """Miniature config for tests: every architectural ratio of KITTI at
     1/8 the token counts."""

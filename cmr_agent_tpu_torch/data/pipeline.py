@@ -29,6 +29,23 @@ import numpy as np
 
 
 # --------------------------------------------------------------------------
+# Camera helpers
+# --------------------------------------------------------------------------
+
+def camera_matrix_scaling(K: np.ndarray, s: float) -> np.ndarray:
+    K = s * K
+    K[2, 2] = 1.0
+    return K
+
+
+def camera_matrix_cropping(K: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    K = np.copy(K)
+    K[0, 2] -= dx
+    K[1, 2] -= dy
+    return K
+
+
+# --------------------------------------------------------------------------
 # Random rigid perturbation
 # --------------------------------------------------------------------------
 
@@ -60,6 +77,19 @@ def random_transform(rng: np.random.Generator, t_amp, r_amp):
 # --------------------------------------------------------------------------
 # Point cloud helpers
 # --------------------------------------------------------------------------
+
+def downsample_indices(rng: np.random.Generator, n_in: int,
+                       n_out: int) -> np.ndarray:
+    """Random choice without replacement; repeat-pad when too few
+    (KittiDataset.py:182-196)."""
+    if n_in >= n_out:
+        return rng.choice(n_in, n_out, replace=False)
+    fix = np.arange(n_in)
+    while n_in + fix.shape[0] < n_out:
+        fix = np.concatenate([fix, np.arange(n_in)])
+    extra = rng.choice(n_in, n_out - fix.shape[0], replace=False)
+    return np.concatenate([fix, extra])
+
 
 def farthest_point_sample_np(rng: np.random.Generator, pts: np.ndarray,
                              k: int) -> np.ndarray:

@@ -35,10 +35,10 @@ class IMGPCEncoder(nn.Module):
         self.img_sa_layers = blocks()
         self.pt_sa_layers = blocks()
 
-    def forward(self, img, pc, node, pt2node):
+    def forward(self, img, pc, node, pt2node, pc_knn=None):
         img_proxy, feat_q, feat_h, feat_f = self.img_transformer(img)
         pt_proxy, node2proxy, pt_feat, node_feat = self.pt_transformer(
-            pc, node, pt2node)
+            pc, node, pt2node, pc_knn)
         for p2i, i2p, isa, psa in zip(self.p2i_ca_layers, self.i2p_ca_layers,
                                       self.img_sa_layers, self.pt_sa_layers):
             img_proxy = p2i(img_proxy, pt_proxy)
@@ -83,10 +83,10 @@ class IMGPCEnDecoder(nn.Module):
                              persistent=False)              # [F, H, W]
         self.dropout = Dropout(0.1)     # hard-coded (JAX fusion.py:97,115)
 
-    def forward(self, img, pc, node, pt2node):
+    def forward(self, img, pc, node, pt2node, pc_knn=None):
         cfg = self.cfg
         f = cfg.embed_dim
-        enc = self.encoder(img, pc, node, pt2node)
+        enc = self.encoder(img, pc, node, pt2node, pc_knn)
 
         proxy_at_node = index_points(enc["pt_proxy"], enc["node2proxy"])
         node_fused = torch.cat([enc["node_feat"], proxy_at_node], dim=-1)

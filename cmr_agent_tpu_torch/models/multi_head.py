@@ -16,7 +16,8 @@ class MultiHeadModel(nn.Module):
     """The one-shot cross-modal geo model.
 
     ``batch`` holds ``img [B,H,W,3]``, ``pc [B,N,3]``, ``node [B,M,3]`` and
-    ``pt2node [B,N]`` int32 (and, for ``with_loss=True``, the labels
+    ``pt2node [B,N]`` int32 (with ``use_gnn_embedding`` also ``pc_knn
+    [B,N,k]`` int32; and, for ``with_loss=True``, the labels
     ``pc_mask``, ``img_mask`` and the ``*_for_circle_loss`` samples).
     Returns the feature dict, the overlap and metric head outputs and the
     derived predictions the agent consumes; with ``with_loss`` also the
@@ -33,7 +34,7 @@ class MultiHeadModel(nn.Module):
     def forward(self, batch, with_loss: bool = False):
         labels = batch if with_loss else None
         feats = self.encoder_decoder(batch["img"], batch["pc"], batch["node"],
-                                     batch["pt2node"])
+                                     batch["pt2node"], batch.get("pc_knn"))
         feats["pt2node"] = batch["pt2node"]
         out = dict(feats)
         out["pc"] = batch["pc"]

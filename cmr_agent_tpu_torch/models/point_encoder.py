@@ -5,6 +5,11 @@ models/PointNN.py:126-232 and PointViT.py:8-205).
 The group softmax goes through the segment-softmax kernel, the node/point
 gathers through ``index_points`` (gather kernel above the JAX package's
 gate) and the node neighbourhood through the knn kernel.
+
+With ``use_gnn_embedding`` the points (not the nodes) are embedded by the
+EdgeConv :class:`~.gnn.MiniGNN` over the batch's ``pc_knn`` plus a
+pointwise positional MLP, as the JAX package completes the reference's
+dead branch (PointViT.py:16-28, 51-56).
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import torch.nn as nn
 from ..config import Config
 from ..ops.sampling import index_points, knn_indices
 from ..ops.scatter import batched_segment_softmax_attend
-from .layers import Linear, MiniPointNet, ViTBlock
+from .gnn import MiniGNN
+from .layers import DenseBN, Linear, MiniPointNet, ViTBlock
 
 
 def _mlp2(cin: int, f: int, dtype) -> nn.Sequential:
@@ -100,6 +106,10 @@ class PointEmbeddings(nn.Module):
         self.knn_transformers = nn.ModuleList(
             KnnPointTransformer(f, dtype) for _ in range(3))
         self.group_transformer_proxy = GroupPointTransformer(f, dtype)
+        if cfg.use_gnn_embedding:
+            self.mini_gnn = MiniGNN(3, 64, f)
+            self.pos_embed_0 = DenseBN(3, 128, dtype)
+            self.pos_embed_1 = Linear(128, f, dtype=dtype)
 
 
 class PointTransformer(nn.Module):
@@ -107,7 +117,8 @@ class PointTransformer(nn.Module):
     -group-> proxies (the first ``num_proxy`` FPS-ordered nodes) -> SA.
 
     Returns ``(proxy_feat [B,P,F], node2proxy [B,M] int32, pt_feat [B,N,F],
-    node_feat [B,M,F])``.
+    node_feat [B,M,F])``. ``pc_knn [B,N,k]`` (the dataset's host knn of the
+    points) is read with ``use_gnn_embedding`` and required there.
     """
 
     def __init__(self, cfg: Config):
@@ -121,9 +132,18 @@ class PointTransformer(nn.Module):
                      cfg.attention_dropout, cfg.mlp_dropout)
             for _ in range(cfg.num_sa_layer))
 
-    def forward(self, pc, node, pt2node):
+    def forward(self, pc, node, pt2node, pc_knn=None):
         cfg, e = self.cfg, self.embeddings
-        x_feat = e.raw_point_mlp(pc.to(self.dtype))
+        pc_c = pc.to(self.dtype)
+        if cfg.use_gnn_embedding:
+            if pc_knn is None:
+                raise ValueError("use_gnn_embedding needs the dataset's "
+                                 "pc_knn key")
+            feat = e.mini_gnn(pc_c, pc_knn)
+            pos = e.pos_embed_1(e.pos_embed_0(pc_c))
+            x_feat = (feat + pos).to(self.dtype)
+        else:
+            x_feat = e.raw_point_mlp(pc_c)
         node_feat = e.raw_point_mlp(node.to(self.dtype))
 
         node_feat = e.group_transformer_0(pc, x_feat, node, node_feat, pt2node)

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX package variables -> the port's ``state_dict``.
+"""Weight bridges into the port's ``state_dict``: from the JAX package's
+variables, and from the reference's own ``.pth`` checkpoints.
 
 The port's modules are named after the reference's torch module tree, so
 the name maps that the JAX package uses to load reference checkpoints
@@ -16,10 +17,29 @@ and inverts their layout transforms:
 
 :func:`flax_to_state_dict` is total: it raises on any port key left
 unassigned, any JAX leaf left unconsumed, or any shape mismatch.
+
+The reference's checkpoints (``geo_feat.pth``, ``agent.pth``, an IterModel
+``.pth``): the port's keys are the reference's names, so
+:func:`convert_torch_multihead`, :func:`convert_torch_agent` and
+:func:`convert_torch_itermodel` only undo the reference's layouts
+(``Conv1d [O, I, 1]`` -> ``Linear [O, I]``, the IterModel tower's
+``Conv3d [O, I, 1, kh, kw]`` -> ``Conv2d``), as the JAX package's
+``convert_torch_*`` (``train/convert.py:364-399``) do into flax. They are
+total too: a key the port needs and the file lacks raises, and so does a
+key the file has and the port does not use, beyond the ones the JAX
+package skips as well: ``num_batches_tracked``, the fixed
+``position_embeddings`` and the image ``Embeddings``' alias keys, which
+must equal the tensors they alias.
+
+With ``use_gnn_embedding`` the geo map also names the EdgeConv embedding
+(``mini_gnn``, ``pos_embed_0``, ``pos_embed_1``). The reference's branch is
+dead upstream (PointViT.py:51-56), so no reference checkpoint holds these
+parameters: the port names them itself, after the JAX package's modules.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -138,6 +158,21 @@ class _MapBuilder:
         self.dense(f"{tk}.w_ks", f"{fp}/w_k", bias=False)
         self.dense(f"{tk}.w_vs", f"{fp}/w_v", bias=False)
 
+    def dense_bn(self, tk: str, fp: str):
+        """torch ``DenseBN`` (Linear, BN, LReLU) -> our DenseBNLeaky."""
+        self.dense(f"{tk}.0", f"{fp}/Dense_0")
+        self.bn(f"{tk}.1", f"{fp}/BatchNorm_0")
+
+    def mini_gnn(self, tk: str, fp: str):
+        """our MiniGNN: embed_0/1, edge_convs.<i> (JAX edge_<i>), final."""
+        self.dense_bn(f"{tk}.embed_0", f"{fp}/embed_0")
+        self.dense_bn(f"{tk}.embed_1", f"{fp}/embed_1")
+        for i in range(5):
+            self.dense(f"{tk}.edge_convs.{i}.layer.0", f"{fp}/edge_{i}/Dense_0")
+            self.bn(f"{tk}.edge_convs.{i}.layer.1",
+                    f"{fp}/edge_{i}/BatchNorm_0")
+        self.dense_bn(f"{tk}.final", f"{fp}/final")
+
     def linear_attention(self, tk: str, fp: str):
         for n in ("q_proj", "k_proj", "v_proj", "merge"):
             self.dense(f"{tk}.{n}", f"{fp}/{n}", bias=False)
@@ -176,6 +211,10 @@ def multihead_name_map(cfg: Config) -> List[Entry]:
     for i in range(3):
         b.knn_pt(f"{emb}.knn_transformers.{i}", f"{pt_f}/knn_{i}")
     b.group_pt(f"{emb}.group_transformer_proxy", f"{pt_f}/group_proxy")
+    if cfg.use_gnn_embedding:
+        b.mini_gnn(f"{emb}.mini_gnn", f"{pt_f}/mini_gnn")
+        b.dense_bn(f"{emb}.pos_embed_0", f"{pt_f}/pos_embed_0")
+        b.dense(f"{emb}.pos_embed_1", f"{pt_f}/pos_embed_1")
     for i in range(cfg.num_sa_layer):
         b.sa_block(f"{pt_t}.sa_encoder_layers.{i}", f"{pt_f}/sa_{i}")
 
@@ -294,25 +333,26 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def flax_to_state_dict(cfg: Config, variables, which: str = "multihead"
-                       ) -> Dict[str, torch.Tensor]:
-    """Turn the JAX package's ``{"params", "batch_stats"}`` (numpy leaves)
-    of a ``MultiHeadModel`` (``which="multihead"``), a ``CMRAgent``
-    (``which="agent"``) or an ``IterModel`` (``which="itermodel"``) into a
-    ``state_dict`` of the port's module."""
+def _model(cfg: Config, which: str):
+    """``(name map, fresh module)`` of ``which``."""
     from ..models.agent import CMRAgent
     from ..models.cost_volume import IterModel
     from ..models.multi_head import MultiHeadModel
     if which == "multihead":
-        entries, module = multihead_name_map(cfg), MultiHeadModel(cfg)
-    elif which == "agent":
-        entries, module = agent_name_map(cfg), CMRAgent(cfg)
-    elif which == "itermodel":
-        entries, module = itermodel_name_map(cfg), IterModel(cfg)
-    else:
-        raise ValueError("which must be 'multihead', 'agent' or "
-                         f"'itermodel', got {which!r}")
-    target = module.state_dict()
+        return multihead_name_map(cfg), MultiHeadModel(cfg)
+    if which == "agent":
+        return agent_name_map(cfg), CMRAgent(cfg)
+    if which == "itermodel":
+        return itermodel_name_map(cfg), IterModel(cfg)
+    raise ValueError("which must be 'multihead', 'agent' or "
+                     f"'itermodel', got {which!r}")
+
+
+def entries_to_state_dict(entries: List[Entry], target, variables
+                          ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` that the name map ``entries`` makes of the JAX
+    ``{"params", "batch_stats"}`` tree ``variables`` for a module whose
+    ``state_dict()`` is ``target``; total (see the module docstring)."""
     flat = {c: _flatten(variables.get(c, {}))
             for c in ("params", "batch_stats")}
     out: Dict[str, torch.Tensor] = {}
@@ -338,3 +378,107 @@ def flax_to_state_dict(cfg: Config, variables, which: str = "multihead"
         raise KeyError(f"unconsumed JAX leaves: {leftover[:8]} "
                        f"(+{max(0, len(leftover) - 8)} more)")
     return out
+
+
+def flax_to_state_dict(cfg: Config, variables, which: str = "multihead"
+                       ) -> Dict[str, torch.Tensor]:
+    """Turn the JAX package's ``{"params", "batch_stats"}`` (numpy leaves)
+    of a ``MultiHeadModel`` (``which="multihead"``), a ``CMRAgent``
+    (``which="agent"``) or an ``IterModel`` (``which="itermodel"``) into a
+    ``state_dict`` of the port's module."""
+    entries, module = _model(cfg, which)
+    return entries_to_state_dict(entries, module.state_dict(), variables)
+
+
+# --------------------------------------------------------------------------
+# The reference's .pth checkpoints
+# --------------------------------------------------------------------------
+
+IMAGE_EMBEDDINGS = "encoder_decoder.encoder.img_transformer.embeddings."
+ALIAS_PREFIX = IMAGE_EMBEDDINGS + "embedding_layers."
+ALIASED = ("mini_resnet.", "patch_embeddings.")
+
+
+def _reference_layout(tag: str, w: torch.Tensor) -> torch.Tensor:
+    """A reference tensor in the port's layout: ``Conv1d [O, I, 1]`` ->
+    ``Linear [O, I]``, ``Conv3d [O, I, 1, kh, kw]`` -> ``Conv2d``."""
+    if tag == T_DENSE and w.ndim == 3 and w.shape[2] == 1:
+        return w[:, :, 0]
+    if tag == T_CONV2D and w.ndim == 5 and w.shape[2] == 1:
+        return w[:, :, 0]
+    return w
+
+
+def _check_aliases(sd: Dict[str, torch.Tensor]) -> None:
+    """Each ``embeddings.embedding_layers.<j>.<rest>`` key of the reference
+    (its ModuleList registers the MiniResNet and the patchify conv a second
+    time, ImageViT.py:15-23) must equal the one original it aliases,
+    ``embeddings.mini_resnet.<rest>`` or ``embeddings.patch_embeddings.
+    <rest>``."""
+    for key, value in sd.items():
+        if not key.startswith(ALIAS_PREFIX):
+            continue
+        rest = key[len(ALIAS_PREFIX):].split(".", 1)[-1]
+        found = [IMAGE_EMBEDDINGS + a + rest for a in ALIASED
+                 if IMAGE_EMBEDDINGS + a + rest in sd]
+        if len(found) != 1:
+            raise KeyError(f"alias key {key} names no single original "
+                           f"(found {found})")
+        if not torch.equal(value, sd[found[0]]):
+            raise ValueError(f"alias key {key} differs from {found[0]}")
+
+
+def _skipped(key: str) -> bool:
+    return (key.startswith(ALIAS_PREFIX) or key.endswith("num_batches_tracked")
+            or "position_embeddings" in key)
+
+
+def torch_to_state_dict(cfg: Config, state_dict_or_path, which: str
+                        ) -> Dict[str, torch.Tensor]:
+    """A reference ``state_dict`` (or the ``.pth`` file holding one, read
+    with ``torch.load(weights_only=True)``) of ``which`` as a ``state_dict``
+    of the port's module, in f32 on the CPU."""
+    if isinstance(state_dict_or_path, (str, os.PathLike)):
+        sd = torch.load(state_dict_or_path, map_location="cpu",
+                        weights_only=True)
+    else:
+        sd = state_dict_or_path
+    entries, module = _model(cfg, which)
+    target = module.state_dict()
+    _check_aliases(sd)
+    out: Dict[str, torch.Tensor] = {}
+    for tk, _, _, tag in entries:
+        if tk not in sd:
+            raise KeyError(f"torch key missing from checkpoint: {tk}")
+        w = _reference_layout(tag, torch.as_tensor(sd[tk]))
+        if tuple(w.shape) != tuple(target[tk].shape):
+            raise ValueError(f"shape mismatch {tk}: {tuple(w.shape)} vs "
+                             f"{tuple(target[tk].shape)}")
+        out[tk] = w.detach().to("cpu", torch.float32).contiguous().clone()
+    surplus = sorted(k for k in sd if k not in out and not _skipped(k))
+    if surplus:
+        raise KeyError(f"unconsumed torch keys: {surplus[:8]} "
+                       f"(+{max(0, len(surplus) - 8)} more)")
+    unassigned = sorted(set(target) - set(out))
+    if unassigned:
+        raise KeyError(f"unassigned port keys: {unassigned[:8]} "
+                       f"(+{max(0, len(unassigned) - 8)} more)")
+    return out
+
+
+def convert_torch_multihead(cfg: Config, state_dict_or_path
+                            ) -> Dict[str, torch.Tensor]:
+    """``geo_feat.pth`` (path or loaded dict) -> ``MultiHeadModel`` state."""
+    return torch_to_state_dict(cfg, state_dict_or_path, "multihead")
+
+
+def convert_torch_agent(cfg: Config, state_dict_or_path
+                        ) -> Dict[str, torch.Tensor]:
+    """``agent.pth`` (path or loaded dict) -> ``CMRAgent`` state."""
+    return torch_to_state_dict(cfg, state_dict_or_path, "agent")
+
+
+def convert_torch_itermodel(cfg: Config, state_dict_or_path
+                            ) -> Dict[str, torch.Tensor]:
+    """An IterModel ``.pth`` (path or loaded dict) -> ``IterModel`` state."""
+    return torch_to_state_dict(cfg, state_dict_or_path, "itermodel")

@@ -8,7 +8,8 @@
   written as a Chrome trace.
 * :func:`cuda_ms` — a call's mean device time from CUDA events.
 * :func:`profile_device` / :func:`device_time_by_name` — device time of a
-  call by kernel name from ``torch.profiler`` (CUPTI).
+  call by kernel name from ``torch.profiler`` (CUPTI); :func:`kernel_rows`
+  reads the card's rows from the profiler's raw events.
 """
 
 from __future__ import annotations
@@ -136,22 +137,47 @@ def device_time_by_name(prof, device: str = "cuda"
     rows that ran on ``device``: on "cuda" its kernels, copies and memsets
     (device self time); on "cpu" the host ops' self time. User annotations
     (``Optimizer.step#Adam.step``) span rows already counted and are left
-    out."""
+    out.
+
+    The card's rows are read from the profiler's raw events
+    (:func:`kernel_rows`): ``key_averages`` first builds the host ops' tree,
+    which took 48–77 s after one profiled call of 4–10 s on an H100 host.
+    """
     from torch.autograd import DeviceType
-    want = DeviceType.CUDA if device == "cuda" else DeviceType.CPU
+    if device == "cuda":
+        return kernel_rows(prof.profiler.kineto_results.events())
     out: Dict[str, Tuple[float, int]] = {}
     for e in prof.key_averages():
-        if (getattr(e, "device_type", None) != want
+        if (getattr(e, "device_type", None) != DeviceType.CPU
                 or getattr(e, "is_user_annotation", False)
                 or e.key.startswith("Optimizer.")):
             continue
-        if want == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        else:
-            us = e.self_cpu_time_total
         ms, n = out.get(e.key, (0.0, 0))
-        out[e.key] = (ms + us / 1e3, n + e.count)
+        out[e.key] = (ms + e.self_cpu_time_total / 1e3, n + e.count)
+    return out
+
+
+def kernel_rows(events) -> Dict[str, Tuple[float, int]]:
+    """``{name: (ms, count)}`` of the CUDA rows among a profile's raw
+    events (``prof.profiler.kineto_results.events()``), the rows
+    ``key_averages`` gives them: the names it filters or hides and the
+    user annotations left out, an asynchronous row counted with no time."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    out: Dict[str, Tuple[float, int]] = {}
+    for e in events:
+        if (e.device_type() != DeviceType.CUDA or _filter_name(e.name())
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or e.is_user_annotation()):
+            continue
+        key = _rewrite_name(name=e.name(), with_wildcard=True)
+        if key.startswith("Optimizer."):
+            continue
+        asynchronous = (e.is_async()
+                        or e.start_thread_id() != e.end_thread_id())
+        ms, n = out.get(key, (0.0, 0))
+        out[key] = (ms + (0.0 if asynchronous
+                          else (e.end_ns() - e.start_ns()) / 1e6), n + 1)
     return out
 
 

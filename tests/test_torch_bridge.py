@@ -81,7 +81,8 @@ def test_synthetic_dataset_bit_identical(index):
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """Import every module of the port with jax/flax/orbax blocked; no
+    """Import every module of the port with jax/flax/orbax blocked, and
+    OpenCV and Pillow too (the card's machine has neither); no
     ``cmr_agent_tpu`` module may get loaded."""
     code = r"""
 import importlib, pkgutil, sys
@@ -89,12 +90,14 @@ import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "flax", "orbax", "optax", "cmr_agent_tpu"):
+        if root in ("jax", "jaxlib", "flax", "orbax", "optax", "cmr_agent_tpu",
+                    "cv2", "PIL"):
             raise ImportError("blocked: " + name)
         return None
 
 for mod in list(sys.modules):
-    if mod.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax"):
+    if mod.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "cv2",
+                             "PIL"):
         del sys.modules[mod]
 sys.meta_path.insert(0, Block())
 import cmr_agent_tpu_torch
@@ -104,7 +107,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "orbax", "cmr_agent_tpu")]
+       if m.split(".")[0] in ("jax", "flax", "orbax", "cmr_agent_tpu", "cv2",
+                              "PIL")]
 assert not bad, bad
 for name in ("models.cost_volume", "train.train_iter", "env.environment",
              "env.episode", "models.layers", "models.agent", "ops.geometry",
@@ -114,7 +118,9 @@ for name in ("models.cost_volume", "train.train_iter", "env.environment",
              "cli.train_geo", "cli.train_agent", "cli.train_iter",
              "train.checkpoint", "train.metrics", "train.export",
              "train.train_geo", "train.train_agent", "train.optim",
-             "data.loader", "native"):
+             "data.loader", "native", "data.augment", "data.kitti",
+             "data.nuscenes", "data.label_mapping", "data.smoke",
+             "models.gnn"):
     assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))
 """

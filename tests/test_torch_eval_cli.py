@@ -266,17 +266,24 @@ def test_test_geo_cli_matches_jax(micro_clis):
 
 @pytest.mark.parametrize("extra, error", [
     ("--device cuda", RuntimeError),            # no card on this host
-    ("--dataset kitti", NotImplementedError),   # no dataset reader yet
-    ("--dataset nuscenes", NotImplementedError),
+    ("--dataset kitti", StopIteration),         # an empty --data-root
+    ("--dataset nuscenes", StopIteration),
     ("--obs3d-compact", None),                  # accepted: runs
     ("--geo-ckpt checkpoint/iter_kitti/epoch-0-step-10500", FileNotFoundError),
-    ("--geo-ckpt geo_feat.pth", NotImplementedError),
+    ("--geo-ckpt geo_feat.pth", FileNotFoundError),   # no such .pth
 ])
 def test_cli_refusals(micro_clis, monkeypatch, extra, error):
     """Each refusal raises; ``--obs3d-compact`` (``obs3d_source=
-    "compact"``) runs, its agent observing the 1024 compacted rows."""
-    argv = ["--device", "cpu", "--dataset", "synthetic",
-            "--synthetic-length", "1"] + extra.split()
+    "compact"``) runs, its agent observing the 1024 compacted rows. Where
+    the JAX package's CLI takes the same arguments (the datasets read from
+    an empty ``--data-root``, a reference ``.pth`` that is not there) it
+    raises the same error."""
+    argv = ["--dataset", "synthetic", "--synthetic-length", "1"
+            ] + extra.split()
+    if extra.startswith(("--dataset", "--geo-ckpt geo_feat")):
+        with pytest.raises(error):
+            jax_test_agent.main(argv)
+    argv = ["--device", "cpu"] + argv
     if error is None:
         monkeypatch.setattr(test_agent, "build_config", lambda args:
                             kitti_config(raster_topk=1024, **MICRO))

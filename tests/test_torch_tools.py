@@ -288,6 +288,79 @@ def test_trace_context_writes_a_chrome_trace(tmp_path):
     assert all(ms >= 0.0 and n >= 1 for ms, n in rows.values())
 
 
+class _RawEvent:
+    """The part of a profiler's raw event that ``kernel_rows`` reads."""
+
+    def __init__(self, name, device="cuda", start=0, end=0, threads=(1, 1),
+                 asynchronous=False, annotation=False, hidden=False):
+        from torch.autograd import DeviceType
+        self._name, self._start, self._end = name, start, end
+        self._device = (DeviceType.CUDA if device == "cuda"
+                        else DeviceType.CPU)
+        self._threads, self._async = threads, asynchronous
+        self._annotation, self._hidden = annotation, hidden
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def start_ns(self):
+        return self._start
+
+    def end_ns(self):
+        return self._end
+
+    def start_thread_id(self):
+        return self._threads[0]
+
+    def end_thread_id(self):
+        return self._threads[1]
+
+    def is_async(self):
+        return self._async
+
+    def is_user_annotation(self):
+        return self._annotation
+
+    def is_hidden_event(self):
+        return self._hidden
+
+
+def test_kernel_rows_groups_the_cards_raw_events():
+    """The card's rows from raw events: summed by name in ms, counted, the
+    host's rows, user annotations, hidden and filtered names and
+    ``Optimizer.`` rows left out, an asynchronous row counted with no
+    time, ``ProfilerStep#N`` under ``ProfilerStep*`` as ``key_averages``
+    names it."""
+    rows = profiling.kernel_rows([
+        _RawEvent("knn_kernel", start=1_000, end=251_000),
+        _RawEvent("knn_kernel", start=300_000, end=800_000),
+        _RawEvent("knn_kernel", device="cpu", start=0, end=9_000_000),
+        _RawEvent("Memcpy HtoD", start=0, end=2_000),
+        _RawEvent("gemm", start=0, end=7_000_000, asynchronous=True),
+        _RawEvent("gemm", start=0, end=7_000_000, threads=(1, 2)),
+        _RawEvent("gemm", start=0, end=3_000_000),
+        _RawEvent("region", start=0, end=5_000_000, annotation=True),
+        _RawEvent("hidden", start=0, end=5_000_000, hidden=True),
+        _RawEvent("[memory]", start=0, end=5_000_000),
+        _RawEvent("Optimizer.step#Adam.step", start=0, end=5_000_000),
+        _RawEvent("ProfilerStep#3", start=0, end=4_000),
+        _RawEvent("ProfilerStep#4", start=0, end=6_000)])
+    assert rows == {"knn_kernel": (0.75, 2), "Memcpy HtoD": (0.002, 1),
+                    "gemm": (3.0, 3), "ProfilerStep*": (0.01, 2)}
+    assert profiling.kernel_rows([]) == {}
+
+
+def test_device_time_by_name_cuda_rows_of_a_host_profile_are_empty():
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.randn(32, 32) @ torch.randn(32, 32)
+    assert profiling.device_time_by_name(prof, "cuda") == {}
+    assert any("mm" in k for k in profiling.device_time_by_name(prof, "cpu"))
+
+
 def _tool(name):
     import importlib
     return importlib.import_module(f"cmr_agent_tpu_torch.tools.{name}")
