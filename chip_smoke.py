@@ -13,6 +13,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase export                 # the serving export
     python3 chip_smoke.py --phase train                  # the training CLIs
     python3 chip_smoke.py --phase inputs                 # KITTI / nuScenes
+    python3 chip_smoke.py --phase modules                # the last modules
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -236,6 +237,23 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     bf16 on the ``.pth`` files (``[eval_kitti]``); the geo train step with
     ``use_gnn_embedding`` at KITTI width, B = 8, on the KITTI tree's host
     knn, under phase 6's gate (``[gnn_geo]``).
+
+22. the last modules (also alone with ``--phase modules``), each part's
+    seconds on ``[modules_part]``: PointNet++'s SSG segmentation stack
+    (SA 1024/256/64/16, FP back to 40960 points) at B = 8 on a KITTI
+    cloud, forward and backward ms, peak memory and the gather kernel's
+    launches, the kernels twin against the plain twin (``[pointnet]``,
+    ``[pointnet_vs_plain]``); FPS 40960 -> 1280 and the 1-NN assignment
+    equal to ``native/``'s host versions on a 1/8 m grid, the ball query
+    and the segment ops against the CPU, each op's ms
+    (``[sampling_ops]``); ``initialize`` at world size 1 over NCCL with
+    the dp geo step bit-equal to ``make_geo_train_step``, then two gloo
+    ranks on this card (started at the phase's start) with the dp step at
+    B = 8 against the single-process step and the sp message shards
+    against the unsharded message (``[parallel]``); ``diagnose_agent
+    --full`` at geo_45 / agent_45, pool 8 (``[diagnose]``); the int8
+    probe with the stack share from this card's trace (``[int8_probe]``);
+    the visualiser's expert and untrained rollouts (``[visualize]``).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -3871,6 +3889,15 @@ def export_worker(torch, kernels, serve, kitti_config, dev, label: str,
                    path + ".inputs.pt")
         torch.save(_pytree.tree_map(lambda t: t.cpu(), out),
                    path + ".outputs.pt")
+    # the process's memory after its exports' captures: each capture's
+    # warm-up keeps an eager scratch buffer for the stream it ran on
+    torch.cuda.synchronize()
+    scratch = list(kernels._SCRATCH.values())
+    line("export_memory", label=label, artifacts=len(artifacts),
+         reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}",
+         allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}",
+         scratch_buffers=len(scratch),
+         scratch_mib=f"{sum(b.numel() for b in scratch) / 2**20:.1f}")
 
 
 def stop(procs) -> None:
@@ -5068,6 +5095,448 @@ def run_inputs(torch, kernels, serve, dev) -> None:
                      f"{torch.cuda.memory_allocated() / 2**30:.3f}"))
 
 
+# ---- phase 22: the last modules --------------------------------------------
+
+# the SSG segmentation stack of PointNet++'s pointnet2_sem_seg (the code the
+# reference's pointnet_util comes from): SA (npoint, radius, nsample,
+# in_channel, mlp) and FP (in_channel, mlp), on a KITTI cloud in xyz
+SSG_SA = ((1024, 0.1, 32, 3, (32, 32, 64)),
+          (256, 0.2, 32, 67, (64, 64, 128)),
+          (64, 0.4, 32, 131, (128, 128, 256)),
+          (16, 0.8, 32, 259, (256, 256, 512)))
+SSG_FP = ((768, (256, 256)), (384, (256, 256)), (320, (256, 128)),
+          (128, (128, 128, 128)))
+MODULES_DIR = "build/modules"
+
+
+def ssg_model(torch, dev):
+    """The SSG stack with random weights from seed 0, in train mode."""
+    from cmr_agent_tpu_torch.models import pointnet as pn
+    from cmr_agent_tpu_torch.serve import init_random_
+    model = torch.nn.ModuleDict({
+        "sa": torch.nn.ModuleList(pn.PointNetSetAbstraction(*a)
+                                  for a in SSG_SA),
+        "fp": torch.nn.ModuleList(pn.PointNetFeaturePropagation(*a)
+                                  for a in SSG_FP)})
+    init_random_(model, torch.Generator().manual_seed(0))
+    return model.to(dev).train()
+
+
+def ssg_forward(model, xyz):
+    """Per-point features ``[B, N, 128]``: the SA levels down, the FP
+    levels back up."""
+    xyzs, feats = [xyz], [None]
+    for sa in model["sa"]:
+        x, f = sa(xyzs[-1], feats[-1])
+        xyzs.append(x)
+        feats.append(f)
+    f = feats[-1]
+    for i, fp in enumerate(model["fp"]):
+        lvl = len(SSG_SA) - 1 - i
+        f = fp(xyzs[lvl], xyzs[lvl + 1], feats[lvl], f)
+    return f
+
+
+def run_pointnet(torch, kernels, serve, kitti_config, dev) -> None:
+    """``[pointnet]``: the SSG stack's forward and backward at B = 8 on a
+    KITTI cloud with the launches counted, then the kernels twin against
+    the plain twin (outputs within atol 1e-4, gradients under phase 6's
+    rule)."""
+    xyz = serve.synthetic_batch(kitti_config(), B, dev, seed=0)["pc"]
+    xyz = xyz.float().contiguous()
+    model = ssg_model(torch, dev)
+    gen = torch.Generator().manual_seed(5)
+    ct = {}
+
+    def fwd_bwd(points):
+        model.zero_grad(set_to_none=True)
+        out = ssg_forward(model, points)
+        if "ct" not in ct:
+            ct["ct"] = torch.randn(out.shape, generator=gen).to(dev)
+        (out * ct["ct"]).sum().backward()
+        return out.detach(), {n: p.grad.detach().clone()
+                              for n, p in model.named_parameters()}
+
+    ssg_forward(model, xyz)                  # warm-up (cuBLAS, the allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out, fwd_s = timed(torch, lambda: ssg_forward(model, xyz))
+    ct["ct"] = torch.randn(out.shape, generator=gen).to(dev)
+    _, bwd_s = timed(torch, lambda: (out * ct["ct"]).sum().backward())
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got_out, got = fwd_bwd(xyz)
+    # the nudge floor: the cotangent nudged in its last bits. The forward's
+    # choices (FPS, ball query, the max pooling) must stay put: a nudged
+    # cloud or weight flips near-tied maxima, which moves whole gradient
+    # rows, while the twins' forwards are the same bits (the gather is a
+    # copy) and only their backward sums differ
+    nudges = [1.0 + s * 2.0 ** -e for e in (23, 22) for s in (1.0, -1.0)]
+    with plain_kernels(kernels):
+        want_out, want = fwd_bwd(xyz)
+        nudged, base = [], ct["ct"]
+        for f in nudges:
+            ct["ct"] = base * f
+            nudged.append(fwd_bwd(xyz)[1])
+        ct["ct"] = base
+    out_diff = (got_out - want_out).abs().max().item()
+    line("pointnet", shape=repr(tuple(out.shape)),
+         forward_ms=f"{fwd_s * 1e3:.2f}", backward_ms=f"{bwd_s * 1e3:.2f}",
+         peak_gib=f"{peak:.2f}", gather_rows_launches=counts["gather_rows"],
+         segment_sum_launches=counts["segment_sum"],
+         launches=repr({k: v for k, v in counts.items() if v}),
+         out_max_diff_vs_plain=f"{out_diff:.3e}")
+    assert counts["gather_rows"] > 0, counts
+    assert torch.isfinite(out).all()
+    assert out_diff <= 1e-4, out_diff
+    hold_gradients("pointnet_vs_plain", got, want, nudged)
+
+
+class _Start:
+    """A generator stand-in whose one draw is the FPS start index: the
+    host FPS draws its start from ``rng.integers(n)``."""
+
+    def __init__(self, i: int):
+        self.i = i
+
+    def integers(self, n):
+        return self.i
+
+
+def run_sampling_ops(torch, kernels, serve, kitti_config, dev) -> None:
+    """``[sampling_ops]``: FPS 40960 -> 1280 and the 1-NN assignment equal
+    to the host versions in ``native/`` (on a 1/8 m grid, where every
+    squared distance is exact in both); the ball query and the segment
+    ops against the CPU's results on the same inputs; each op's ms."""
+    from cmr_agent_tpu_torch.native import fps_native, nn_assign_native
+    from cmr_agent_tpu_torch.ops import sampling, scatter
+    pc = serve.synthetic_batch(kitti_config(), B, dev, seed=0)["pc"].float()
+    pts = torch.round(pc * 8) / 8
+    host_pts = pts.cpu().numpy()
+    init = torch.randint(0, N_PT, (B,),
+                         generator=torch.Generator().manual_seed(3))
+    fps = lambda: sampling.farthest_point_sample(pts, N_NODE, init_idx=init)
+    idx = fps()
+    want = np.stack([fps_native(_Start(int(i)), p, N_NODE)
+                     for i, p in zip(init, host_pts)])
+    same = np.array_equal(idx.cpu().numpy(), want)
+    line("sampling_ops", op="farthest_point_sample",
+         shape=repr((B, N_PT, N_NODE)), equal_to_native=same,
+         ms=f"{cuda_ms(fps, 2):.3f}")
+    assert same
+    centres = torch.gather(pts, 1, idx.long()[..., None].expand(-1, -1, 3))
+    assign = sampling.nearest_assign(pts, centres)
+    want = np.stack([nn_assign_native(p, c) for p, c in
+                     zip(host_pts, centres.cpu().numpy())])
+    same = np.array_equal(assign.cpu().numpy(), want)
+    line("sampling_ops", op="nearest_assign",
+         shape=repr((B, N_PT, N_NODE)), equal_to_native=same,
+         ms=f"{cuda_ms(lambda: sampling.nearest_assign(pts, centres), 5):.3f}")
+    assert same
+    ball = lambda x, c: sampling.query_ball_point(2.0, 32, x, c)
+    got = ball(pts[:2], centres[:2, :256])
+    same = torch.equal(got.cpu(), ball(pts[:2].cpu(), centres[:2, :256].cpu()))
+    line("sampling_ops", op="query_ball_point", radius=2.0, nsample=32,
+         equal_to_cpu=same, full_rows=int((got != got[..., :1]).all(-1)
+                                          .sum()),
+         ms=f"{cuda_ms(lambda: ball(pts, centres), 3):.3f}")
+    assert same
+    _, randn, _ = rand_factory(torch, 23, dev)
+    data = randn(B, N_PT, F)
+    ids = assign
+    cases = (
+        ("segment_sum", lambda d, i: scatter.segment_sum(d[0], i[0], N_NODE,
+                                                         "scatter")),
+        ("segment_sum_matmul", lambda d, i: scatter.segment_sum(
+            d[0], i[0], N_NODE, "matmul")),
+        ("segment_max", lambda d, i: scatter.segment_max(d[0], i[0], N_NODE)),
+        ("segment_mean", lambda d, i: scatter.segment_mean(d[0], i[0],
+                                                           N_NODE)),
+        ("segment_softmax_attend", lambda d, i: scatter.segment_softmax_attend(
+            d[0], d[1], i[0], N_NODE)),
+        ("batched_segment_sum", lambda d, i: scatter.batched_segment_sum(
+            d[:2], i[:2], N_NODE, "scatter")),
+        ("batched_segment_max", lambda d, i: scatter.batched_segment_max(
+            d[:2], i[:2], N_NODE)),
+        ("batched_segment_mean", lambda d, i: scatter.batched_segment_mean(
+            d[:2], i[:2], N_NODE, "scatter")))
+    for name, fn in cases:
+        got, want = fn(data, ids).cpu(), fn(data.cpu(), ids.cpu())
+        if name.endswith("segment_max"):
+            ok = torch.equal(got, want)
+        elif name == "segment_softmax_attend":
+            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+        else:
+            # the sums in another order: within 1e-6 of the segment's sum
+            # of magnitudes (the CPU tests' rule)
+            mags = fn(data.abs(), ids).cpu()
+            ok = bool(((got - want).abs() <= 1e-6 * mags + 1e-7).all())
+        line("sampling_ops", op=name, shape=repr(tuple(data[0].shape)),
+             segments=N_NODE, within_cpu_tolerance=ok,
+             max_diff=f"{(got - want).abs().max().item():.3e}",
+             ms=f"{cuda_ms(lambda: fn(data, ids), 5):.4f}")
+        assert ok, name
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_parallel_ranks(torch, serve, kitti_config, dev) -> tuple:
+    """Phase 22's two gloo ranks on the one card, started at the phase's
+    start with the B = 8 train batch in their directory (this process's
+    copy, cached since phase 6): each sets up, then waits for ``go``
+    there. Returns ``(procs, directory)``."""
+    import os
+    import shutil
+    d = os.path.join(MODULES_DIR, "parallel")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    batch = serve.synthetic_batch(kitti_config(), B, dev, seed=0,
+                                  keys=serve.TRAIN_KEYS)
+    torch.save({k: v.cpu() for k, v in batch.items()},
+               os.path.join(d, "batch.pt"))
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, __file__, "--parallel-worker",
+                               str(r), d, port]) for r in range(2)]
+    return procs, d
+
+
+def parallel_worker(torch, kernels, serve, kitti_config, rank: int, d: str,
+                    port: str) -> None:
+    """One of phase 22's two ranks (``--parallel-worker RANK DIR PORT``):
+    the dp geo step on its 4 rows of the B = 8 batch over gloo, which
+    all-reduces CUDA tensors, and the sp message of its token shards;
+    results to ``DIR/rank<RANK>.pt``."""
+    import os
+    from cmr_agent_tpu_torch.parallel import distributed as D
+    from cmr_agent_tpu_torch.parallel import mesh as M
+    from cmr_agent_tpu_torch.parallel.sp import sp_linear_attention_message
+    from cmr_agent_tpu_torch.train import train_geo
+    dev = torch.device("cuda")
+    kernels.library()
+    # set up while the main process runs the phase's first parts (mostly
+    # host work: the batch's scenes), then wait for "go"
+    D.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                 backend="gloo", timeout_s=300)
+    dp = M.make_mesh((2,), ("dp",), device="cuda")
+    sp = M.make_mesh((1, 2), ("dp", "sp"), device="cuda")
+    cfg = kitti_config()
+    batch = {k: v.to(dev) for k, v in
+             torch.load(os.path.join(d, "batch.pt")).items()}
+    state = train_geo.create_geo_state(cfg, dev, seed=0)
+    M.replicate(state.model, dp)
+    step = M.make_sharded_geo_train_step(cfg, dp)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = parallel_qkv(torch, dev)
+    torch.cuda.synchronize()
+    wait_for(os.path.join(d, "go"), 900)
+    kernels.reset_launch_counts()
+    metrics, seconds = timed(torch, lambda: step(state, batch, gen))
+    counts = {k_: v_ for k_, v_ in kernels.launch_counts().items() if v_}
+    lq, lk = q.shape[1] // 2, k.shape[1] // 2
+    msg = sp_linear_attention_message(
+        q[:, rank * lq:(rank + 1) * lq], k[:, rank * lk:(rank + 1) * lk],
+        v[:, rank * lk:(rank + 1) * lk], sp.group("sp"))
+    torch.save({"metrics": {k_: v_.item() for k_, v_ in metrics.items()},
+                "checksum": param_checksum(state.model), "seconds": seconds,
+                "launches": counts, "sp_message": msg.cpu()},
+               os.path.join(d, f"rank{rank}.pt"))
+    D.barrier("done", timeout_s=300)
+    D.shutdown()
+
+
+def parallel_qkv(torch, dev):
+    """The sp check's feature-mapped q [B, 1280, 4, 32] (the nodes) and
+    k / v [B, 5120, 4, 32] (the pixels) from seed 11."""
+    gen = torch.Generator().manual_seed(11)
+    q = torch.rand(B, N_NODE, 4, 32, generator=gen) + 0.5
+    k = torch.rand(B, 5120, 4, 32, generator=gen) + 0.5
+    v = torch.randn(B, 5120, 4, 32, generator=gen)
+    return q.to(dev), k.to(dev), v.to(dev)
+
+
+def param_checksum(model) -> float:
+    return float(sum(p.detach().double().abs().sum().item()
+                     for p in model.parameters()))
+
+
+def run_parallel(torch, kernels, serve, kitti_config, dev, procs,
+                 d: str) -> None:
+    """``[parallel]``: ``initialize`` at world size 1 over NCCL, its dp
+    step the same bits as ``make_geo_train_step`` (deterministic
+    algorithms on for both); then the two gloo ranks' dp step at B = 8
+    against the single-process step (step-0 loss within rtol 1e-6, the
+    parameters' checksum after the step within rtol 5e-5), and their sp
+    message shards against the unsharded message (rtol 1e-5)."""
+    import os
+    from cmr_agent_tpu_torch.parallel import distributed as D
+    from cmr_agent_tpu_torch.parallel import mesh as M
+    from cmr_agent_tpu_torch.parallel.sp import linear_attention_message
+    from cmr_agent_tpu_torch.train import train_geo
+    with open(os.path.join(d, "go"), "w"):
+        pass                                  # the ranks start meanwhile
+    cfg = kitti_config()
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        states, metrics = [], []
+        for make in (lambda: M.make_sharded_geo_train_step(
+                         cfg, M.make_mesh(device="cuda")),
+                     lambda: train_geo.make_geo_train_step(cfg)):
+            state = train_geo.create_geo_state(cfg, dev, seed=0)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            metrics.append(make()(state, batch, gen))
+            states.append(state)
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        D.shutdown()
+    same = (all(torch.equal(metrics[0][k], metrics[1][k])
+                for k in metrics[1])
+            and all(torch.equal(a, b) for a, b in zip(
+                states[0].model.state_dict().values(),
+                states[1].model.state_dict().values())))
+    line("parallel", world=1, backend="nccl", same_bits_as_train_step=same)
+    assert same
+    want_loss = metrics[1]["loss"].item()
+    want_sum = param_checksum(states[1].model)
+    del states
+    for p in procs:
+        rc = p.wait(timeout=600)
+        assert rc == 0, f"a gloo rank exited {rc} (gloo refusing CUDA " \
+                        f"tensors fails here too)"
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)]
+    q, k, v = parallel_qkv(torch, dev)
+    msg = linear_attention_message(q, k, v)
+    half = q.shape[1] // 2
+    for r, res in enumerate(ranks):
+        loss_rel = abs(res["metrics"]["loss"] - want_loss) / abs(want_loss)
+        sum_rel = abs(res["checksum"] - want_sum) / abs(want_sum)
+        shard = msg[:, r * half:(r + 1) * half].cpu()
+        # the largest difference over its tolerance (rtol 1e-5, atol 1e-6)
+        sp_vs_tol = ((res["sp_message"] - shard).abs()
+                     / (1e-6 + 1e-5 * shard.abs())).max().item()
+        m = res["metrics"]
+        line("parallel", world=2, backend="gloo", rank=r,
+             step_s=f"{res['seconds']:.3f}", loss=f"{m['loss']:.7f}",
+             loss_single=f"{want_loss:.7f}", loss_rel_diff=f"{loss_rel:.2e}",
+             checksum_rel_diff=f"{sum_rel:.2e}",
+             pc_overlap_precision=f"{m['pc_overlap_precision']:.6f}",
+             launches=repr(res["launches"]),
+             sp_message_max_diff_over_tol=f"{sp_vs_tol:.3f}")
+        assert loss_rel <= 1e-6 and sum_rel <= 5e-5, (loss_rel, sum_rel)
+        torch.testing.assert_close(res["sp_message"], shard, rtol=1e-5,
+                                   atol=1e-6)
+
+
+def run_diagnose(torch, kernels) -> None:
+    """``[diagnose]``: ``diagnose_agent --full`` at the committed geo_45 /
+    agent_45 weights, pool 8, batch 8; its table relayed, then each
+    kernel's launches over the run."""
+    from cmr_agent_tpu_torch.tools import diagnose_agent
+    kernels.reset_launch_counts()
+    out, _ = run_cli("diagnose", diagnose_agent.main, [
+        "--full", "--pool-size", "8", "--batch-size", "8", "--geo-ckpt",
+        "runs_r4/geo_45", "--agent-ckpt", "runs_r4/agent_45", "--pose-aware",
+        "--aux-head", "--bearing-init", "--device", "cuda"])
+    counts = kernels.launch_counts()
+    line("diagnose", launches=repr({k: v for k, v in counts.items() if v}),
+         rte_first=f"{out['rte'][0].mean():.3f}",
+         rte_last=f"{out['rte'][-1].mean():.3f}")
+    assert np.isfinite(out["rte"]).all() and np.isfinite(out["rre"]).all()
+    assert counts["segment_softmax_attend"] > 0 and counts["knn"] > 0
+
+
+def run_int8_probe(torch) -> None:
+    """``[int8_probe]``: the three chains' ms/iter at B = 8, N = 40960,
+    F = 64 and the projected episode gain from this card's own trace of a
+    bf16 episode."""
+    from cmr_agent_tpu_torch.tools import int8_probe
+    out = run_tool("int8_probe", int8_probe.main,
+                   ["--iters", "10", "--episode-iters", "2"])
+    assert all(out[k] > 0 for k in ("bf16_ms", "int8_ms", "int8mm_ms",
+                                    "episode_ms")), out
+    assert 0 < out["stack_share"] <= 1, out
+
+
+def run_visualize(torch, kernels, kitti_config, dev) -> None:
+    """``[visualize]``: the expert's rollout on one KITTI-width sample on
+    the card (its RTE and RRE must descend), and an untrained agent's on
+    random geo outputs with the launches counted (no rendering: the card's
+    host has neither matplotlib nor Pillow)."""
+    from cmr_agent_tpu_torch.data import SyntheticDataset, collate
+    from cmr_agent_tpu_torch.models.agent import CMRAgent
+    from cmr_agent_tpu_torch.native import get_fast_host_ops
+    from cmr_agent_tpu_torch.serve import init_random_
+    from cmr_agent_tpu_torch.tools import visualize
+    cfg = kitti_config()
+    fps_fn, nn_fn = get_fast_host_ops()
+    batch = collate([SyntheticDataset(cfg, length=1, seed=3, fps_fn=fps_fn,
+                                      nn_fn=nn_fn)[0]])
+    kernels.reset_launch_counts()
+    rec, seconds = timed(torch, lambda: visualize.rollout(
+        cfg, batch, "expert", device=dev))
+    line("visualize", policy="expert", seconds=f"{seconds:.3f}",
+         rte=",".join(f"{e:.3f}" for e in rec["rte"]),
+         rre=",".join(f"{e:.3f}" for e in rec["rre"]),
+         launches=sum(kernels.launch_counts().values()))
+    assert rec["rte"][-1] < rec["rte"][0] and rec["rre"][-1] < rec["rre"][0]
+    agent = CMRAgent(cfg)
+    init_random_(agent, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(4)
+    geo_vars = {"pc_overlap_pred": torch.from_numpy(batch["pc_mask"]).bool(),
+                "pc_geo_feat": torch.randn(1, cfg.num_pt, cfg.embed_dim,
+                                           generator=gen),
+                "img_geo_feat": torch.randn(1, cfg.image_h, cfg.image_w,
+                                            cfg.embed_dim, generator=gen)}
+    kernels.reset_launch_counts()
+    rec, seconds = timed(torch, lambda: visualize.rollout(
+        cfg, batch, "untrained", geo_vars, agent.to(dev).eval(), device=dev))
+    counts = kernels.launch_counts()
+    line("visualize", policy="untrained", seconds=f"{seconds:.3f}",
+         rte_last=f"{rec['rte'][-1]:.3f}",
+         launches=repr({k: v for k, v in counts.items() if v}))
+    assert np.isfinite(rec["rte"]).all()
+    assert counts["segment_mean_count_image"] == cfg.action_num, counts
+
+
+def run_modules(torch, kernels, serve, kitti_config, dev) -> None:
+    """Phase 22 (``--phase modules``): the last modules on the card, each
+    part on lines of its own, with its seconds on ``[modules_part]``."""
+    import gc
+    procs, d = start_parallel_ranks(torch, serve, kitti_config, dev)
+    try:
+        for name, fn in (
+                ("pointnet", lambda: run_pointnet(torch, kernels, serve,
+                                                  kitti_config, dev)),
+                ("sampling_ops", lambda: run_sampling_ops(
+                    torch, kernels, serve, kitti_config, dev)),
+                ("parallel", lambda: run_parallel(
+                    torch, kernels, serve, kitti_config, dev, procs, d)),
+                ("diagnose", lambda: run_diagnose(torch, kernels)),
+                ("int8_probe", lambda: run_int8_probe(torch)),
+                ("visualize", lambda: run_visualize(
+                    torch, kernels, kitti_config, dev))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            line("modules_part", name=name,
+                 seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        stop(procs)
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -5078,9 +5547,9 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     phases 8 and 14, "factored" kernel 6b and the raster probes from phase
     15, "eval" phase 18 (the E7 evaluation), "export" phase 19 (the
     composed artifact at ``hypotheses`` candidates), "train" phase 20 (the
-    training entry points), "inputs" phase 21 (the reference's inputs).
-    Returns the number of repeats that failed
-    their gate."""
+    training entry points), "inputs" phase 21 (the reference's inputs),
+    "modules" phase 22 (the last modules). Returns the number of repeats
+    that failed their gate."""
     failed = 0
     if phase == "train":
         # once: after a repeat this process's allocator pins segments the
@@ -5114,6 +5583,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_train(torch, kernels, serve, dev)
             elif phase == "inputs":
                 run_inputs(torch, kernels, serve, dev)
+            elif phase == "modules":
+                run_modules(torch, kernels, serve, kitti_config, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -5135,7 +5606,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval|export|train|inputs [--repeat N] [--hypotheses K]``
+    factored|eval|export|train|inputs|modules [--repeat N] [--hypotheses
+    K]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate); ``--hypotheses`` is the composed
     artifact's K under ``--phase export`` (13, E7's)."""
@@ -5145,7 +5617,7 @@ def main(argv=None) -> int:
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
                              "factored", "eval", "export", "train",
-                             "inputs"),
+                             "inputs", "modules"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--hypotheses", type=int, default=13)
@@ -5155,6 +5627,9 @@ def main(argv=None) -> int:
     ap.add_argument("--iter-cli-worker", metavar="DIR",
                     help="phase 20's train_iter run without remat, its "
                          "checkpoints under DIR")
+    ap.add_argument("--parallel-worker", nargs=3,
+                    metavar=("RANK", "DIR", "PORT"),
+                    help="one of phase 22's two gloo ranks")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5173,6 +5648,11 @@ def main(argv=None) -> int:
     if opts.export_worker:
         export_worker(torch, kernels, serve, kitti_config, dev,
                       opts.export_worker, opts.hypotheses)
+        return 0
+    if opts.parallel_worker:
+        rank, d, port = opts.parallel_worker
+        parallel_worker(torch, kernels, serve, kitti_config, int(rank), d,
+                        port)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5290,6 +5770,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_inputs(torch, kernels, serve, dev)
     line("fifteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_modules(torch, kernels, serve, kitti_config, dev)
+    line("sixteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
     # agent training run, one composed request, the "pack" episode, the

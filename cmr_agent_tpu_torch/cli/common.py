@@ -6,11 +6,18 @@ Differences from the JAX package's CLIs:
 
 * ``--device`` (default ``cuda``): the entry points run on the card unless
   asked for the CPU, and asking for CUDA where there is none raises;
-* the JAX runtime's own flags are not ported: ``--distributed``,
-  ``--coordinator``, ``--num-processes``, ``--process-id``,
-  ``--debug-nans`` and the compile cache; ``--profile`` writes a
-  ``torch.profiler`` trace (:func:`..utils.profiling.trace_context`)
-  where the JAX CLIs write a ``jax.profiler`` one;
+* ``--distributed``, ``--coordinator``, ``--num-processes`` and
+  ``--process-id`` join a ``torch.distributed`` job
+  (:func:`maybe_initialize_distributed`, first in every CLI's ``main``;
+  NCCL on the card, gloo on the CPU). As in the JAX package they only
+  initialise: the CLIs' loops do not split their batches;
+* ``--debug-nans`` fails fast on the first NaN a module puts out in the
+  forward and on the first in the backward (:func:`set_debug_nans`), where
+  the JAX package sets ``jax_debug_nans``;
+* the XLA compile cache has no counterpart (the port's compiled code is
+  the ``nvcc`` build cache); ``--profile`` writes a ``torch.profiler``
+  trace (:func:`..utils.profiling.trace_context`) where the JAX CLIs
+  write a ``jax.profiler`` one;
 * the training CLIs train in float32 only: ``--dtype bfloat16`` raises
   (:func:`refuse_bf16_training`, ROADMAP A.5), and their f32 matmuls and
   convolutions run at TF32 (:func:`tf32_precision`), where PyTorch's own
@@ -98,7 +105,64 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast on the first NaN a module puts out, in "
+                        "the forward or the backward")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed job before device use "
+                        "(needs --coordinator, --num-processes, "
+                        "--process-id)")
+    p.add_argument("--coordinator", default=None,
+                   help="rendezvous address host:port (multi-process)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
+
+
+def maybe_initialize_distributed(args) -> None:
+    """Join the ``torch.distributed`` job the flags name (NCCL for a CUDA
+    ``--device``, gloo for the CPU); call first in every CLI ``main``."""
+    if getattr(args, "distributed", False) or getattr(args, "coordinator",
+                                                      None):
+        from ..parallel.distributed import initialize
+        initialize(coordinator_address=args.coordinator,
+                   num_processes=args.num_processes,
+                   process_id=args.process_id,
+                   device=getattr(args, "device", "cuda"))
+
+
+_NAN_HOOK = [None]
+
+
+def _raise_on_nan(module, inputs, output) -> None:
+    stack = [output]
+    while stack:
+        o = stack.pop()
+        if isinstance(o, torch.Tensor):
+            if o.is_floating_point() and torch.isnan(o).any():
+                raise FloatingPointError(
+                    f"NaN in the output of {type(module).__name__} "
+                    "(--debug-nans)")
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (tuple, list)):
+            stack.extend(o)
+
+
+def set_debug_nans(on: bool = True) -> None:
+    """``--debug-nans``: with ``on``, every module's forward output is
+    checked and the first NaN raises ``FloatingPointError`` naming the
+    module, and autograd's anomaly mode (``check_nan``) raises at the
+    first backward function that returns a NaN; off restores both. NaNs
+    only, as ``jax_debug_nans``: some paths fill with infinities on
+    purpose. Each check reads the device back, so the run slows down."""
+    if on and _NAN_HOOK[0] is None:
+        _NAN_HOOK[0] = torch.nn.modules.module.register_module_forward_hook(
+            _raise_on_nan)
+    elif not on and _NAN_HOOK[0] is not None:
+        _NAN_HOOK[0].remove()
+        _NAN_HOOK[0] = None
+    torch.autograd.set_detect_anomaly(on, check_nan=True)
 
 
 @contextlib.contextmanager
@@ -131,6 +195,8 @@ def refuse_bf16_training(cfg: Config) -> None:
 
 
 def build_config(args) -> Config:
+    if getattr(args, "debug_nans", False):
+        set_debug_nans(True)
     overrides = {}
     if args.batch_size is not None:
         overrides["train_batch_size"] = args.batch_size

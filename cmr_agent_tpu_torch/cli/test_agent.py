@@ -41,7 +41,7 @@ from ..train.train_iter import iter_model_state
 from .common import (add_common_args, apply_obs_overrides, build_config,
                      build_dataset, load_geo_variables, load_model,
                      make_loader, require_batches, set_seed,
-                     to_device)
+                     to_device, maybe_initialize_distributed)
 
 STATS = ("smooth_mean", "sum_norm", "mean_valid", "frac_valid",
          "above50_norm", "above70_norm", "ir_smooth", "ir_mean", "ir_norm",
@@ -185,6 +185,7 @@ def prepare(argv=None):
     the beam's matrices."""
     p = parser()
     args = p.parse_args(argv)
+    maybe_initialize_distributed(args)
     dev = serve.resolve_device(args.device)
     cfg = apply_obs_overrides(build_config(args), args)
     set_seed(cfg.seed)

@@ -30,7 +30,7 @@ from ..train.train_iter import iter_model_state
 from .common import (add_common_args, apply_obs_overrides, build_config,
                      build_dataset, load_geo_variables, load_model,
                      make_loader, require_batches, set_seed,
-                     to_device)
+                     to_device, maybe_initialize_distributed)
 
 
 def main(argv=None):
@@ -51,6 +51,7 @@ def main(argv=None):
     p.add_argument("--r-amp", type=float, default=None,
                    help="yaw perturbation amplitude override (rad)")
     args = p.parse_args(argv)
+    maybe_initialize_distributed(args)
     dev = resolve_device(args.device)
 
     cfg = apply_obs_overrides(build_config(args), args)

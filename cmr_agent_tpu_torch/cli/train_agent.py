@@ -35,7 +35,7 @@ from ..utils.profiling import trace_context
 from .common import (add_common_args, apply_obs_overrides,
                      build_config, build_dataset, load_geo_variables,
                      make_loader, refuse_bf16_training, set_seed,
-                     tf32_precision, to_device)
+                     tf32_precision, to_device, maybe_initialize_distributed)
 
 
 def resume_rollout_step(cfg, opt_step: int) -> int:
@@ -96,6 +96,7 @@ def main(argv=None):
                         "(Config.bearing_init)")
     p.add_argument("--lr", type=float, default=None, help="override cfg.lr")
     args = p.parse_args(argv)
+    maybe_initialize_distributed(args)
     dev = resolve_device(args.device)
 
     cfg = apply_obs_overrides(build_config(args), args)

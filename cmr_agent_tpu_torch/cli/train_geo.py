@@ -32,7 +32,7 @@ from ..train.train_geo import (create_geo_state, make_geo_eval_step,
 from ..utils.profiling import trace_context
 from .common import (add_common_args, build_config, build_dataset,
                      make_loader, refuse_bf16_training, set_seed,
-                     tf32_precision, to_device)
+                     tf32_precision, to_device, maybe_initialize_distributed)
 
 
 def main(argv=None):
@@ -48,6 +48,7 @@ def main(argv=None):
                         "S-1 tail batches per epoch are dropped (drop_last "
                         "semantics).")
     args = p.parse_args(argv)
+    maybe_initialize_distributed(args)
     dev = resolve_device(args.device)
 
     cfg = build_config(args)

@@ -33,7 +33,7 @@ from ..utils.profiling import trace_context
 from .common import (add_common_args, apply_obs_overrides,
                      build_config, build_dataset, load_geo_variables,
                      make_loader, refuse_bf16_training, set_seed,
-                     tf32_precision, to_device)
+                     tf32_precision, to_device, maybe_initialize_distributed)
 
 
 def main(argv=None):
@@ -55,6 +55,7 @@ def main(argv=None):
                         "stage in the backward (Config.cost_volume_remat): "
                         "more step time for less activation memory")
     args = p.parse_args(argv)
+    maybe_initialize_distributed(args)
     dev = resolve_device(args.device)
 
     cfg = apply_obs_overrides(build_config(args), args)

@@ -1,6 +1,7 @@
 """Host data pipelines (KITTI / NuScenes / synthetic), numpy and scipy
 only (counterpart of the JAX package's ``data/__init__.py``, whose names
-it exports but ``shard_batch``, a JAX mesh placement).
+it exports); ``shard_batch`` puts a batch on the device (torch is imported
+inside it).
 
 The geometry lives in pure-numpy functions (:mod:`.pipeline`) shared by
 every dataset; the image resize and colour jitter (:mod:`.augment`) are
@@ -35,7 +36,7 @@ from .pipeline import (  # noqa: E402
 from .kitti import KittiCalib, KittiDataset  # noqa: E402
 from .nuscenes import NuScenesDataset  # noqa: E402
 from .synthetic import SyntheticDataset, make_synthetic_raw  # noqa: E402
-from .loader import DataLoader  # noqa: E402
+from .loader import DataLoader, shard_batch  # noqa: E402
 from .label_mapping import load_label_mapping  # noqa: E402
 
 __all__ = [
@@ -44,5 +45,6 @@ __all__ = [
     "sample_circle_loss_points", "farthest_point_sample_np",
     "nearest_assign_np", "build_geometry_sample", "cost_volume_labels",
     "KittiCalib", "KittiDataset", "NuScenesDataset", "SyntheticDataset",
-    "make_synthetic_raw", "DataLoader", "collate", "load_label_mapping",
+    "make_synthetic_raw", "DataLoader", "shard_batch", "collate",
+    "load_label_mapping",
 ]

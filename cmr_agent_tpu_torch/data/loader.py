@@ -36,6 +36,20 @@ def _worker_collate(args) -> Dict[str, np.ndarray]:
     return collate([_WORKER_DATASET[int(i)] for i in idxs])
 
 
+def shard_batch(batch: Dict[str, np.ndarray], mesh=None,
+                batch_axis: str = "dp", device="cuda"):
+    """A collated batch as tensors on ``device``, or, under ``mesh``, this
+    rank's rows of it along ``mesh[batch_axis]`` on the mesh's device (the
+    JAX package's dp placement)."""
+    import torch
+    if mesh is None:
+        return {k: torch.as_tensor(np.asarray(v)).to(device)
+                for k, v in batch.items()}
+    from ..parallel.mesh import batch_sharding
+    return {k: batch_sharding(mesh, np.ndim(v), batch_axis).shard(
+        torch.as_tensor(np.asarray(v))) for k, v in batch.items()}
+
+
 class DataLoader:
     """Iterable over collated batches with background prefetch.
 

@@ -8,11 +8,13 @@ given."""
 from __future__ import annotations
 
 import torch
+import torch.distributed
 import torch.nn as nn
 
 from ..config import Config
 from ..ops.losses import circle_loss, focal_loss
 from ..ops.sampling import index_points
+from ..parallel import mesh as _mesh
 from .layers import Conv2d, Linear, ResDenseBlock, ResidualBlock2D
 
 
@@ -78,9 +80,20 @@ class OverlapDetectionHead(_Head):
 
 def pr_metrics(prefix: str, pred: torch.Tensor, label: torch.Tensor):
     """Precision, recall and accuracy of binary predictions (JAX
-    ``heads.py:_pr_metrics``)."""
+    ``heads.py:_pr_metrics``); under a mesh whose ``dp`` spans several
+    ranks, of the global batch (the counts all-reduced over ``dp``)."""
     pred_f, label_f = pred.float(), label.float()
     tp = (pred_f * label_f).sum()
+    dp = _mesh.axis_group("dp")
+    if dp is not None:
+        counts = torch.stack([tp, pred_f.sum(), label_f.sum(),
+                              (pred == label).float().sum(),
+                              tp.new_tensor(float(pred.numel()))])
+        torch.distributed.all_reduce(counts, group=dp[0])
+        tp, n_pred, n_label, n_right, n = counts.unbind(0)
+        return {f"{prefix}_precision": tp / n_pred.clamp_min(1.0),
+                f"{prefix}_recall": tp / n_label.clamp_min(1.0),
+                f"{prefix}_accuracy": n_right / n}
     return {
         f"{prefix}_precision": tp / pred_f.sum().clamp_min(1.0),
         f"{prefix}_recall": tp / label_f.sum().clamp_min(1.0),

@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import kernels
+from ..parallel import mesh as _mesh
 
 
 def leaky(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -123,8 +124,18 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator,
+        # under a mesh the tensor is this rank's shard of a global one:
+        # draw the global mask (the generator is seeded alike on every
+        # rank) and keep this rank's part, as JAX draws one mask for the
+        # whole sharded batch
+        shards = _mesh.row_shards()
+        shape = list(x.shape)
+        for axis, _, count in shards:
+            shape[axis] *= count
+        mask = torch.rand(shape, generator=self.generator,
                           device=x.device) < keep
+        for axis, index, _ in shards:
+            mask = mask.narrow(axis, index * x.shape[axis], x.shape[axis])
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -155,7 +166,11 @@ class BatchNorm(nn.Module):
     the input dtype, like the JAX package's ``BatchNorm``. In ``train()``
     mode the statistics are the batch's over every other axis, with the
     variance ``E[x^2] - E[x]^2`` clipped at 0 (biased; flax's fast
-    variance), and the running stats move by momentum 0.9.
+    variance), and the running stats move by momentum 0.9. Under a mesh
+    whose ``dp`` spans several ranks (:func:`..parallel.mesh.use_mesh`)
+    the sums, sums of squares and counts are all-reduced over ``dp``
+    (differentiably) first, so the statistics, and the running stats on
+    every rank, are the global batch's.
     """
 
     def __init__(self, features: int, dim: int = -1, eps: float = 1e-5):
@@ -173,8 +188,20 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = [d for d in range(x.ndim) if d != self.dim % x.ndim]
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            dp = _mesh.axis_group("dp")
+            if dp is None:
+                mean = xf.mean(dim=axes)
+                var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            else:
+                from torch.distributed.nn.functional import all_reduce
+                c = xf.shape[self.dim]
+                count = xf.new_full((1,), xf.numel() // c)
+                sums = all_reduce(torch.cat([xf.sum(dim=axes),
+                                             (xf * xf).sum(dim=axes), count]),
+                                  group=dp[0])
+                mean = sums[:c] / sums[2 * c]
+                var = (sums[c:2 * c] / sums[2 * c]
+                       - mean * mean).clamp_min(0.0)
             if not _FROZEN_STATS[0]:
                 with torch.no_grad():
                     self.running_mean.copy_(0.9 * self.running_mean

@@ -10,10 +10,10 @@ PyTorch twins of the JAX package's ``ops/geometry.py`` (same names, same
   ``matrix_to_euler_intrinsic_xyz_degrees`` (``pose_diff``) are scipy's
   ``as_euler('xyz')`` and ``as_euler('XYZ', degrees=True)`` in closed form,
   with the gimbal-lock branches of the JAX package;
-* ``angle2matrix_sxyz`` is the transforms3d-style extrinsic-xyz
-  ``Rz @ Ry @ Rx`` of the cost volume's pose grid (reference
-  models/IterModel.py:95-130), with ``make_se3``, ``se3_inverse`` and the
-  entangled ``transform_points`` beside it;
+* ``euler_xyz_extrinsic_to_matrix`` (alias ``angle2matrix_sxyz``) is the
+  transforms3d-style extrinsic-xyz ``Rz @ Ry @ Rx`` of the cost volume's
+  pose grid (reference models/IterModel.py:95-130), with ``make_se3``,
+  ``se3_inverse`` and the entangled ``transform_points`` beside it;
 * ``project_points_cn`` and ``frustum_mask_cn`` are the channel-major
   ``[B, 3, N]`` twins of the fused-stack eval episode.
 """
@@ -49,13 +49,17 @@ def euler_angles_to_matrix_xyz(euler: torch.Tensor) -> torch.Tensor:
     return rx @ ry @ rz
 
 
-def angle2matrix_sxyz(euler: torch.Tensor) -> torch.Tensor:
+def euler_xyz_extrinsic_to_matrix(euler: torch.Tensor) -> torch.Tensor:
     """Extrinsic-xyz ``euler (..., 3)`` radians -> ``Rz @ Ry @ Rx``
     (scipy ``from_euler('xyz')``, transforms3d ``'sxyz'``)."""
     rx = axis_angle_rotation("X", euler[..., 0])
     ry = axis_angle_rotation("Y", euler[..., 1])
     rz = axis_angle_rotation("Z", euler[..., 2])
     return rz @ ry @ rx
+
+
+# transforms3d 'sxyz' == extrinsic xyz.
+angle2matrix_sxyz = euler_xyz_extrinsic_to_matrix
 
 
 def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

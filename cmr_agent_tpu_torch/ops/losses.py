@@ -5,7 +5,9 @@
 * focal loss with kornia's quirks (reference models/focal_loss.py:55-112):
   ``p = softmax + eps`` and a one-hot target carrying ``+1e-6``;
 * circle loss on sampled pixel<->point pairs with detached hinge weights
-  (reference models/MultiHeadModel.py:141-178).
+  (reference models/MultiHeadModel.py:141-178);
+* the Lovasz hinge and Lovasz-softmax (JAX ``losses.py:95-135``,
+  reference utils/lovasz_loss.py), on no training path of either package.
 """
 
 from __future__ import annotations
@@ -71,3 +73,40 @@ def circle_loss(img_features: torch.Tensor, pc_features: torch.Tensor,
     loss_row = F.softplus(torch.logsumexp(pos_term, dim=-2)
                           + torch.logsumexp(neg_term, dim=-2)) / log_scale
     return (loss_col + loss_row).mean(), dists
+
+
+def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
+    """Gradient of the Lovasz extension w.r.t. the sorted errors."""
+    gts = gt_sorted.sum()
+    intersection = gts - torch.cumsum(gt_sorted, dim=0)
+    union = gts + torch.cumsum(1.0 - gt_sorted, dim=0)
+    jaccard = 1.0 - intersection / union.clamp_min(1e-12)
+    return torch.cat([jaccard[:1], jaccard[1:] - jaccard[:-1]])
+
+
+def lovasz_hinge(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary Lovasz hinge; flat ``logits [P]``, ``labels [P]`` in {0, 1}.
+    The errors are ordered by a stable descending sort, as ``jnp.argsort``
+    of the negated errors orders them."""
+    labels = labels.to(logits.dtype)
+    errors = 1.0 - logits * (2.0 * labels - 1.0)
+    order = torch.argsort(-errors, stable=True)
+    return (torch.relu(errors[order]) * _lovasz_grad(labels[order])).sum()
+
+
+def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor,
+                   num_classes: int = None) -> torch.Tensor:
+    """Multiclass Lovasz-softmax; ``probs [P, C]``, integer ``labels [P]``:
+    the mean of the per-class Lovasz extensions over the classes present
+    (absent classes masked to zero weight, JAX ``losses.py:115-135``)."""
+    c = num_classes or probs.shape[-1]
+    losses, present = [], []
+    for ci in range(c):
+        fg = (labels == ci).to(probs.dtype)
+        errors = (fg - probs[:, ci]).abs()
+        order = torch.argsort(-errors, stable=True)
+        losses.append((errors[order] * _lovasz_grad(fg[order])).sum())
+        present.append(fg.sum() > 0)
+    losses = torch.stack(losses)
+    present = torch.stack(present).to(probs.dtype)
+    return (losses * present).sum() / present.sum().clamp_min(1.0)

@@ -310,6 +310,19 @@ def itermodel_name_map(cfg: Config) -> List[Entry]:
     return b.entries
 
 
+def pointnet_name_map(module: torch.nn.Module) -> List[Entry]:
+    """Name map of a PointNet++ module of :mod:`..models.pointnet` (an SA,
+    MSG SA or FP layer): flax names each ``_GroupMLP`` ``_GroupMLP_0``
+    (``scale_i`` in the MSG layer) and its layers ``mlp_i`` / ``bn_i``."""
+    b = _MapBuilder()
+    for name, child in module.named_children():
+        fp = "_GroupMLP_0" if name == "group_mlp" else name
+        for i in range(child.depth):
+            b.dense(f"{name}.mlp_{i}", f"{fp}/mlp_{i}")
+            b.bn(f"{name}.bn_{i}", f"{fp}/bn_{i}")
+    return b.entries
+
+
 def _invert_transform(tag: str, w: np.ndarray) -> np.ndarray:
     """Inverse of the JAX package's ``_apply_transform`` for the port's
     layouts (``Linear`` and ``Conv2d``)."""
@@ -333,8 +346,11 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _model(cfg: Config, which: str):
-    """``(name map, fresh module)`` of ``which``."""
+def _model(cfg: Config, which):
+    """``(name map, fresh module)`` of ``which``; a PointNet++ module
+    (built with its own arguments, not from ``cfg``) is its own target."""
+    if isinstance(which, torch.nn.Module):
+        return pointnet_name_map(which), which
     from ..models.agent import CMRAgent
     from ..models.cost_volume import IterModel
     from ..models.multi_head import MultiHeadModel
@@ -380,12 +396,13 @@ def entries_to_state_dict(entries: List[Entry], target, variables
     return out
 
 
-def flax_to_state_dict(cfg: Config, variables, which: str = "multihead"
+def flax_to_state_dict(cfg: Config, variables, which="multihead"
                        ) -> Dict[str, torch.Tensor]:
     """Turn the JAX package's ``{"params", "batch_stats"}`` (numpy leaves)
     of a ``MultiHeadModel`` (``which="multihead"``), a ``CMRAgent``
-    (``which="agent"``) or an ``IterModel`` (``which="itermodel"``) into a
-    ``state_dict`` of the port's module."""
+    (``which="agent"``), an ``IterModel`` (``which="itermodel"``) or a
+    PointNet++ layer (``which`` the port's module of it, ``cfg`` unused)
+    into a ``state_dict`` of the port's module."""
     entries, module = _model(cfg, which)
     return entries_to_state_dict(entries, module.state_dict(), variables)
 

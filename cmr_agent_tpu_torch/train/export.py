@@ -288,16 +288,21 @@ class LoadedProgram:
         return _pytree.tree_map(torch.clone, self._static_out)
 
     def _capture(self, inputs: Dict[str, torch.Tensor]) -> None:
+        # the warm-up and the capture run on the device's one capture
+        # stream (train_geo's): the kernels keep an eager scratch buffer
+        # per stream, so a fresh stream per artifact would keep one more
+        # buffer for every capture the process makes
+        from .train_geo import _capture_stream
         static = {k: v.clone() for k, v in inputs.items()}
         dev = self.device
-        side = torch.cuda.Stream(dev)
+        side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.no_grad():
             with torch.cuda.stream(side):
                 self.module(static)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=side):
                 out = self.module(static)
         self.graph, self._static_in, self._static_out = graph, static, out
 

@@ -94,13 +94,23 @@ def make_rollout_fn(cfg: Config, reward_apply_pose: bool = True):
     return rollout
 
 
-def make_ppo_update_step(cfg: Config):
+def make_ppo_update_step(cfg: Config, mesh=None):
     """``(agent_state, minibatch) -> metrics``: one BC + PPO step
     (Train_Agent.py:263-305) on rows ``state_2d, state_3d,
     expert_action_r/t, action_r/t, action_logprob, returns, advantage``.
-    Metrics are 0-d tensors (no host sync)."""
+    Metrics are 0-d tensors (no host sync). With a
+    :class:`..parallel.mesh.Mesh` the rows are this rank's dp shard of the
+    minibatch, and the BatchNorm statistics, gradients and metrics are the
+    whole minibatch's (as :func:`.train_geo.make_geo_train_step`)."""
+    from ..parallel.mesh import average_gradients, mean_over, use_mesh
 
     def update(agent_state: AgentTrainState, mb: Dict[str, torch.Tensor]):
+        with use_mesh(mesh):
+            metrics = _update(agent_state, mb)
+        return metrics if mesh is None else mean_over(metrics, METRIC_KEYS,
+                                                      mesh)
+
+    def _update(agent_state: AgentTrainState, mb: Dict[str, torch.Tensor]):
         agent = agent_state.agent.train()
         agent_state.optimizer.zero_grad()
         r_logits, t_logits, value = agent(mb["state_2d"], mb["state_3d"])
@@ -128,6 +138,8 @@ def make_ppo_update_step(cfg: Config):
                     - entropy_loss * cfg.w_entropy)
         loss = bc_loss + cfg.alpha * ppo_loss
         loss.backward()
+        if mesh is not None:
+            average_gradients(agent, mesh)
         agent_state.optimizer.step()
         return {"loss": loss.detach(), "bc_loss": bc_loss.detach(),
                 "ppo_loss": ppo_loss.detach(),

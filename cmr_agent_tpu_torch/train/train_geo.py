@@ -58,21 +58,36 @@ def create_geo_state(cfg: Config, device="cuda", seed: int = 0,
                                           steps_per_epoch))
 
 
-def make_geo_train_step(cfg: Config) -> Callable:
+LOSS_KEYS = METRIC_KEYS[:4]
+
+
+def make_geo_train_step(cfg: Config, mesh=None) -> Callable:
     """``(state, batch, generator=None) -> metrics``: one optimizer step
     on ``batch`` (the synthetic/loader batch dict as tensors on the
     model's device); ``generator`` (on that device) draws the dropout
-    masks. Metrics are 0-d tensors (no host sync)."""
+    masks. Metrics are 0-d tensors (no host sync).
+
+    With a :class:`..parallel.mesh.Mesh`, ``batch`` is this rank's dp rows
+    of a global batch: the forward runs under the mesh (global BatchNorm
+    statistics, dropout masks and P/R/A counts), the gradients and the
+    losses are averaged over dp, so every rank takes the step one process
+    takes on the global batch."""
+    from ..parallel.mesh import average_gradients, mean_over, use_mesh
 
     def train_step(state: GeoTrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
         state.model.train()
         set_dropout_generator(state.model, generator)
         state.optimizer.zero_grad()
-        out = state.model(batch, with_loss=True)
-        out["loss"].backward()
+        with use_mesh(mesh):
+            out = state.model(batch, with_loss=True)
+            out["loss"].backward()
+        if mesh is not None:
+            average_gradients(state.model, mesh)
         state.optimizer.step()
-        return {k: out[k].detach() for k in METRIC_KEYS}
+        metrics = {k: out[k].detach() for k in METRIC_KEYS}
+        return metrics if mesh is None else mean_over(metrics, LOSS_KEYS,
+                                                      mesh)
 
     return train_step
 

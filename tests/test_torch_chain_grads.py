@@ -293,3 +293,14 @@ def test_compact_mean_image_grad_equals_flat():
         out[mode] = (img.detach(), x.grad)
     for a, c in zip(out["flat"], out["compact"]):
         torch.testing.assert_close(a, c, rtol=0, atol=1e-6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

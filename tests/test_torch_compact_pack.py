@@ -215,3 +215,14 @@ def test_export_parameters_match_the_ctypes_signature(name):
     assert kernels._SIGNATURES[name] == [_ctype(p) for p in params], params
     restype = kernels._RESTYPES.get(name, ctypes.c_int)
     assert restype is _ctype(ret, named=False), ret
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

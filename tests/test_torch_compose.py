@@ -564,3 +564,14 @@ def test_build_composed_workload_defaults_to_cuda():
         pytest.skip("this host has a CUDA card")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_composed_workload(micro_config(), 1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -358,3 +358,14 @@ def test_itermodel_trained_checkpoint_matches_jax():
     np.testing.assert_allclose(got["cost_volume_logits"].numpy(), w,
                                rtol=2e-4, atol=1e-4)
     np.testing.assert_array_equal(got["warp_dropped_points"].numpy(), [0])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -293,4 +293,4 @@ def test_label_mappings_and_exports_match_jax():
     from cmr_agent_tpu import data as jax_data
     assert set(port_data.__all__) == {
         n for n in dir(jax_data) if not n.startswith("_")
-        and callable(getattr(jax_data, n))} - {"shard_batch"}
+        and callable(getattr(jax_data, n))}

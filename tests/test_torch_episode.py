@@ -190,3 +190,14 @@ def test_build_workload_on_cpu_runs_the_episode():
     assert not model.training and not agent.training
     final = episode(batch)
     assert final.shape == (2, 4, 4) and torch.isfinite(final).all()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -370,3 +370,14 @@ def test_fused_episode_matches_jax_per_step(fused_slice):
         np.testing.assert_allclose(gt.numpy(), wt, atol=1e-4)
     np.testing.assert_allclose(got["final_pose"].numpy(),
                                fused_slice["want_final"], atol=1e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

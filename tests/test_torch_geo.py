@@ -128,3 +128,14 @@ def test_agent_logits_match_jax():
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -231,3 +231,14 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_no_launch():
     meta = torch.zeros(2, 3, device="meta")
     with pytest.raises(ValueError):
         kernels.gather_rows(meta[None], torch.zeros(1, 2, dtype=torch.int32))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

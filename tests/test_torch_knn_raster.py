@@ -236,3 +236,14 @@ def test_int8_scale_is_the_ieee_quotient():
     _, scale = kernels.quantize_int8(_t(feat))
     absmax = np.maximum(np.abs(feat).max(axis=1), np.float32(1e-12))
     np.testing.assert_array_equal(scale.numpy(), absmax / np.float32(127.0))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

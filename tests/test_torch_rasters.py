@@ -215,3 +215,14 @@ def test_uncompacted_mode_episode_matches_jax(geo, mode, monkeypatch):
         np.testing.assert_allclose(gt.numpy(), wt, atol=1e-4)
     np.testing.assert_allclose(got["final_pose"].numpy(),
                                np.asarray(want_final), atol=1e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

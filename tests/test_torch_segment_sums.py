@@ -96,3 +96,14 @@ def test_segment_sum_shared_plain_matches_pallas_interpret_cases(kind, n, f,
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     _check_routing(kind, got.numpy()[:, 0], m)
     assert not got[:, 2].any()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -241,3 +241,14 @@ def test_pixel_id_raster_bf16_data_read_as_given(mode):
     want = kernels.segment_mean_count_image(d16.float(), _t(ids), h, w, tdt)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

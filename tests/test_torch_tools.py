@@ -577,3 +577,14 @@ def test_tools_refuse_to_fall_back_to_cpu(name):
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         _tool(name).main(TOOL_ARGS[name])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

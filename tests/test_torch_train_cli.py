@@ -564,3 +564,14 @@ def test_synthetic_batch_is_a_fresh_copy_of_the_dataset_batch():
     assert sample_settings(wider) != sample_settings(cfg)
     moved = serve.synthetic_batch(wider, B, "cpu", seed=3)
     assert not torch.equal(moved["P"], second["P"])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

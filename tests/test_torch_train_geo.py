@@ -323,3 +323,14 @@ def test_geo_train_step_descends():
     assert state.step == 4
     metrics = train_geo.make_geo_eval_step(cfg)(state, batch)
     assert np.isfinite(metrics["loss"].item())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -359,3 +359,14 @@ def test_iter_train_probe_runs_on_the_cpu(capsys):
     for row in out["modes"].values():
         assert len(row["step_ms"]) == 2 and row["median_ms"] > 0
         assert "peak_gib" not in row
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -166,3 +166,14 @@ def test_image_raster_refuses_int8():
     with pytest.raises(ValueError, match="float16"):
         kernels.segment_mean_count_image(_t(data), _t(ids), h, w,
                                          torch.float16)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs a test
+    process per core or so, and torch's default of a thread per core in
+    each of them oversubscribes the host many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
