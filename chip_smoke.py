@@ -14,6 +14,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase train                  # the training CLIs
     python3 chip_smoke.py --phase inputs                 # KITTI / nuScenes
     python3 chip_smoke.py --phase modules                # the last modules
+    python3 chip_smoke.py --phase train_bf16             # bf16 training
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -254,6 +255,25 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     --full`` at geo_45 / agent_45, pool 8 (``[diagnose]``); the int8
     probe with the stack share from this card's trace (``[int8_probe]``);
     the visualiser's expert and untrained rollouts (``[visualize]``).
+
+23. bf16 training (also alone with ``--phase train_bf16``), at KITTI
+    width and depth, B = 8, random weights, the synthetic dataset, each
+    part's seconds on ``[train_bf16_part]``: the kernel-1 VJP's bf16 mode
+    on the 4 calls of a bf16 geo forward, within one bf16 rounding of its
+    plain version on the same leaves, the same bits twice, with its time,
+    device time, bound and the widened route's time (f32 casts, the f32
+    mode, casts back) beside it (``[softmax_backward_bf16]``);
+    ``cli.train_geo --dtype bfloat16`` for 4 steps eager and 6 at
+    ``--steps-per-dispatch 2`` (steps/s, busy share, peak memory,
+    launches per step, ``[train_geo_bf16]``), phase 6's gate in bf16 with
+    the nudges in bf16's last bits (``[geo_train_bf16_vs_plain]``) and
+    the bf16 step's loss beside the f32 step's; ``cli.train_agent --dtype
+    bfloat16 --steps 4`` (rollout and update ms) and phase 7's twin in
+    bf16 (``[train_agent_bf16]``, ``[train_agent_bf16_vs_plain]``);
+    ``cli.train_iter --dtype bfloat16 --steps 3`` with ``--remat`` here
+    and without it in phase 20's worker process (``[train_iter_bf16]``),
+    and the bf16 IterModel step's logits against its plain twin under
+    phase 4's bf16 gate (``[train_iter_bf16_vs_plain]``).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -1083,10 +1103,15 @@ def run_geo_train(torch, kernels, serve, cfg, dev):
     return counts, state, batch
 
 
-def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
+def compare_geo_twins(torch, kernels, cfg, batch, dev,
+                      tag: str = "geo_train_vs_plain") -> None:
     """Phase 6's gate: the geo train step's gradients and three steps'
     losses, a twin with the kernels against a twin with the plain versions,
-    both from seed 0 with dropout off. Prints ``[geo_train_vs_plain]``."""
+    both from seed 0 with dropout off. Prints ``[tag]``. In bf16 (phase
+    23) the input nudges are bf16's last bits (2^-8, 2^-7 where f32 takes
+    2^-23, 2^-22), the first step's loss is held to one bf16 rounding
+    (2^-8) and the later ones to 1e-2 (3.55e-3 seen at the second step on
+    an H100)."""
     from cmr_agent_tpu_torch.models.layers import set_dropout_rate
     from cmr_agent_tpu_torch.train import train_geo
     step = train_geo.make_geo_train_step(cfg)
@@ -1111,7 +1136,9 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
     # dense layer before batch-statistics BatchNorm has a weight gradient
     # of heavily cancelling sums, see tests/test_torch_train_geo.py). One
     # nudge is one draw of that noise, so the floor is the largest of them.
-    nudges = [1.0 + s * 2.0 ** -e for e in (23, 22) for s in (1.0, -1.0)]
+    bf16 = cfg.compute_dtype == "bfloat16"
+    nudges = [1.0 + s * 2.0 ** -e for e in ((8, 7) if bf16 else (23, 22))
+              for s in (1.0, -1.0)]
     nudged = []
     for name, twin in twins.items():
         with (plain_kernels(kernels) if name == "plain"
@@ -1126,15 +1153,15 @@ def compare_geo_twins(torch, kernels, cfg, batch, dev) -> None:
                             for _ in range(3)]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"],
                                                losses["plain"])]
-    hold_gradients("geo_train_vs_plain", grads["kernels"], grads["plain"],
-                   nudged,
+    hold_gradients(tag, grads["kernels"], grads["plain"], nudged,
                    loss_kernels=",".join(f"{v:.7f}" for v in
                                          losses["kernels"]),
                    loss_plain=",".join(f"{v:.7f}" for v in losses["plain"]),
                    loss_rel_diff=",".join(f"{v:.2e}" for v in rel))
     # step 1 differs only by summation order; Adam's normalised update can
     # turn a near-zero gradient element's sign into a full lr step after it
-    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, (losses, rel)
+    first, later = (2.0 ** -8, 1e-2) if bf16 else (1e-5, 1e-3)
+    assert rel[0] <= first and max(rel) <= later, (losses, rel)
 
 
 def hold_gradients(tag: str, got, want, nudged, **extra) -> None:
@@ -1275,12 +1302,17 @@ def agent_train_twin(torch, kernels, cfg, geo_out, batch, dev, order,
         assert torch.equal(tk[key], tp[key]), key
     torch.testing.assert_close(fk, fp, rtol=0, atol=1e-6)
     # the observations' means are f32 sums in another order; the agent
-    # carries that difference to its outputs
-    torch.testing.assert_close(tk["state_2d"], tp["state_2d"], rtol=1e-5,
-                               atol=1e-5)
+    # carries that difference to its outputs. In bf16 the agent's layers
+    # round it (a flipped rounding is 2^-8): its outputs are held to phase
+    # 4's bf16 logit gate
+    bf16 = cfg.compute_dtype == "bfloat16"
+    torch.testing.assert_close(tk["state_2d"].float(),
+                               tp["state_2d"].float(), rtol=1e-5, atol=1e-5)
     diffs = {k: (tk[k] - tp[k]).abs().max().item()
              for k in ("value", "action_logprob", "entropy")}
-    assert max(diffs.values()) <= 1e-3, diffs
+    for k, d in diffs.items():
+        assert d <= (1e-2 + 3e-2 * tp[k].abs().max().item() if bf16
+                     else 1e-3), (k, diffs)
     for k in train_agent.METRIC_KEYS:
         a, b = mk[k].item(), mp[k].item()
         assert abs(a - b) <= 1e-4 * abs(b) + 1e-5, (k, a, b)
@@ -2916,9 +2948,9 @@ def check_softmax_backward(torch, kernels, attn, values, idx, m: int):
     """The backward kernel on the new forward's residuals (one of the geo
     forward's calls, rows routed out both ways) against autograd of the
     plain forward, as phase 5 holds it: rtol 1e-4, atol 1e-5 max|grad|;
-    then ``SegmentSoftmaxAttendFn`` on bf16 leaves: bf16 gradients within
-    one bf16 rounding (rtol 2^-7) of autograd of the plain version on the
-    same leaves."""
+    then its bf16 mode on the same operands rounded to bf16
+    (:func:`hold_softmax_backward_bf16`), and ``SegmentSoftmaxAttendFn``
+    on those bf16 leaves giving that mode's bits."""
     idx = routed_out(idx, m)
     g = torch.randn(attn.shape[0], m, attn.shape[-1],
                     generator=torch.Generator().manual_seed(17)).to(
@@ -2934,21 +2966,50 @@ def check_softmax_backward(torch, kernels, attn, values, idx, m: int):
                                    atol=1e-5 * b.abs().max().item())
     diffs = [(a - b).abs().max().item() for a, b in zip(got, (a_.grad,
                                                              v_.grad))]
-    a16, v16 = (t.detach().bfloat16().requires_grad_() for t in (attn,
-                                                                 values))
-    kernels.SegmentSoftmaxAttendFn.apply(a16, v16, idx, m).backward(g)
-    p16, q16 = (t.detach().bfloat16().requires_grad_() for t in (attn,
-                                                                 values))
-    kernels.segment_softmax_attend_plain(p16, q16, idx, m).backward(g)
-    for a, b in ((a16.grad, p16.grad), (v16.grad, q16.grad)):
-        assert a.dtype == torch.bfloat16, a.dtype
-        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
-                                   atol=1e-5 * b.float().abs().max().item())
+    a16, v16 = (t.detach().bfloat16() for t in (attn, values))
+    err16, want16 = hold_softmax_backward_bf16(torch, kernels, a16, v16, idx,
+                                               m, g)
+    p16, q16 = (t.clone().requires_grad_() for t in (a16, v16))
+    kernels.SegmentSoftmaxAttendFn.apply(p16, q16, idx, m).backward(g)
+    assert torch.equal(p16.grad, want16[0]) and torch.equal(q16.grad,
+                                                            want16[1])
     line("softmax_backward", shape=f"[{attn.shape[0]},{attn.shape[1]},"
          f"{attn.shape[2]}]->{m}", tol="rtol 1e-4 atol 1e-5 max|g| vs "
-         "autograd of the plain forward; bf16 leaves within one bf16 "
-         "rounding", max_abs_diff_dattn=diffs[0], max_abs_diff_dvalues=diffs[1],
-         bf16_grad_dtype="bfloat16")
+         "autograd of the plain forward; the bf16 mode within one bf16 "
+         "rounding of its plain version, the autograd Function its bits",
+         max_abs_diff_dattn=diffs[0], max_abs_diff_dvalues=diffs[1],
+         bf16_mode_max_abs_err=err16, bf16_grad_dtype="bfloat16")
+
+
+def hold_softmax_backward_bf16(torch, kernels, attn, values, idx, m: int,
+                               g):
+    """The backward kernel's bf16 mode on bf16 ``attn`` / ``values`` (the
+    forward kernel's residuals of the same leaves): one launch a call,
+    bf16 gradients within one bf16 rounding (rtol 2^-7: the kernel's and
+    the plain version's f32 results differ in expf's last bits, and each
+    rounds once) of :func:`segment_softmax_attend_backward_plain` on the
+    same leaves, routed-out rows exactly 0, the same bits on a second
+    launch. Returns ``(largest error, the kernel's (dattn, dvalues))``."""
+    assert attn.dtype == values.dtype == torch.bfloat16
+    out, sums, gmax = kernels.segment_softmax_attend(attn, values, idx, m,
+                                                     return_stats=True)
+    args = (attn, values, idx, out, sums, gmax, g, m)
+    name = "segment_softmax_attend_backward"
+    before = kernels.launch_counts()[name]
+    got = kernels.segment_softmax_attend_backward(*args)
+    assert kernels.launch_counts()[name] == before + 1
+    want = kernels.segment_softmax_attend_backward_plain(*args)
+    routed = ((idx < 0) | (idx >= m))[..., None]
+    err = 0.0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16, (a.dtype, b.dtype)
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
+                                   atol=1e-30)
+        assert not a.masked_select(routed).any()
+        err = max(err, (a.float() - b.float()).abs().max().item())
+    again = kernels.segment_softmax_attend_backward(*args)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+    return err, got
 
 
 def check_softmax_kernel(torch, kernels, serve, kitti_config, dev):
@@ -4275,19 +4336,23 @@ def run_agent_clis(torch, kernels, tmp: str) -> None:
         del state, rec
 
 
-def run_iter_cli(torch, kernels, tmp: str, label: str) -> None:
-    """``cli.train_iter --steps 3`` at B = 8, with ``--remat`` where
-    ``label`` is "remat": step ms, peak memory, the validation line and the
-    checkpoints (the step-0 improvement and the final one)."""
+def run_iter_cli(torch, kernels, tmp: str, label: str,
+                 dtype: str = "float32") -> None:
+    """``cli.train_iter --steps 3`` at B = 8 in ``dtype``, with ``--remat``
+    where ``label`` is "remat": step ms, peak memory, the validation line
+    and the checkpoints (the step-0 improvement and the final one), on a
+    ``[train_iter_cli]`` line (``[train_iter_bf16]`` in bf16)."""
     import os
     from cmr_agent_tpu_torch.cli import train_iter as cli
-    ck = os.path.join(tmp, "iter_" + label)
+    tag = "train_iter_bf16" if dtype == "bfloat16" else "train_iter_cli"
+    ck = os.path.join(tmp, f"iter_{label}_{dtype}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with recording(torch, kernels, cli, "make_iter_train_step") as rec:
-        state, lines = run_cli("train_iter_cli", cli.main, list(
+        state, lines = run_cli(tag, cli.main, list(
             TRAIN_CLI_ARGV) + ["--steps", "3", "--ckpt-dir", ck,
-                               "--logdir", os.path.join(tmp, "log")]
+                               "--logdir", os.path.join(tmp, "log"),
+                               "--dtype", dtype]
             + (["--remat"] if label == "remat" else []))
     wall = time.perf_counter() - t0
     calls = rec["make_iter_train_step"]
@@ -4301,7 +4366,10 @@ def run_iter_cli(torch, kernels, tmp: str, label: str) -> None:
     # (the third step is the second epoch's first: 2 batches an epoch)
     assert [n.split("/")[-1] for n in names] == [
         "epoch-0-step-0", "epoch-1-step-3"], names
-    line("train_iter_cli", mode=label, batch=B, tf32="on",
+    params = [t for t in state.model.state_dict().values()
+              if t.is_floating_point()]
+    assert all(t.dtype == torch.float32 for t in params)
+    line(tag, mode=label, batch=B, tf32="on", dtype=dtype,
          step_ms=",".join(f"{t * 1e3:.2f}" for t, _ in calls),
          run_s=f"{wall:.2f}",
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
@@ -4310,9 +4378,12 @@ def run_iter_cli(torch, kernels, tmp: str, label: str) -> None:
 
 
 def run_iter_worker(torch) -> None:
-    """``[train_iter_cli]`` without ``--remat``: :func:`run_iter_cli` in a
-    process of its own (``--iter-cli-worker``), its lines relayed here. Its
-    ~69 GiB peak wants the card to itself, so the whole run starts it
+    """``[train_iter_cli]`` and ``[train_iter_bf16]`` without ``--remat``:
+    :func:`run_iter_cli` in f32, then in bf16 (phase 23), in a process of
+    its own (``--iter-cli-worker``), its lines relayed here. The f32 step's
+    ~69 GiB peak wants the card to itself (in bf16 BatchNorm keeps f32
+    copies of its inputs, so the bf16 peak is not half), so the whole run
+    starts it
     before phase 1 and ``--phase train`` once before its repeats: after the
     other phases this process's allocator keeps segments that a few small
     live tensors pin (8.7 GiB reserved for 0.09 GiB allocated after
@@ -4345,6 +4416,19 @@ def run_iter_worker(torch) -> None:
     assert rc == 0, f"the train_iter worker exited {rc}"
 
 
+def iter_twin_state(torch, serve, dev, dtype: str):
+    """``(config, IterModel input state)`` of the IterModel twins: KITTI
+    width under ``cost_volume_remat`` in ``dtype``, B = 8, the geo outputs
+    of a seed-0 geo model on a seed-0 batch."""
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.train import train_geo, train_iter
+    cfg = kitti_config(cost_volume_remat=True, compute_dtype=dtype)
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=ITER_KEYS)
+    geo = train_geo.create_geo_state(cfg, dev, seed=0).model
+    return cfg, train_iter.iter_model_state(
+        train_geo.make_geo_forward(cfg)(geo, batch), batch)
+
+
 def check_iter_train_twin(torch, kernels, serve, dev) -> None:
     """``[iter_train_twin]``: one IterModel train-mode forward + backward
     at B = 8 under ``cost_volume_remat`` (the warp runs twice, the second
@@ -4354,14 +4438,8 @@ def check_iter_train_twin(torch, kernels, serve, dev) -> None:
     6's rule with the warp's rows (``pc_geo_feat``) as the nudged input.
     Then the kernels' twin at TF32 under :func:`hold_tf32`."""
     from cmr_agent_tpu_torch.cli.common import tf32_precision
-    from cmr_agent_tpu_torch.config import kitti_config
-    from cmr_agent_tpu_torch.train import train_geo, train_iter
-    cfg = kitti_config(cost_volume_remat=True)
-    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=ITER_KEYS)
-    geo = train_geo.create_geo_state(cfg, dev, seed=0).model
-    st = train_iter.iter_model_state(
-        train_geo.make_geo_forward(cfg)(geo, batch), batch)
-    del geo
+    from cmr_agent_tpu_torch.train import train_iter
+    cfg, st = iter_twin_state(torch, serve, dev, "float32")
 
     def run(model, s):
         model.zero_grad(set_to_none=True)
@@ -5537,6 +5615,302 @@ def run_modules(torch, kernels, serve, kitti_config, dev) -> None:
         stop(procs)
 
 
+# ---- phase 23: bf16 training ----------------------------------------------
+
+def softmax_backward_bound(attn, m: int, valid: int):
+    """The kernel-1 VJP's bound: attn and values of the rows in range read
+    once in their dtype, the ids, the three [B, M, F] tables and gmax (f32)
+    read once, dattn and dvalues written once in the operands' dtype; 6
+    operations an element in range."""
+    b, n, f = attn.shape
+    elt = attn.element_size()
+    nbytes = (2 * valid * f * elt + b * n * 4 + 3 * b * m * f * 4
+              + b * f * 4 + 2 * b * n * f * elt)
+    return bound(nbytes, 6.0 * valid * f)
+
+
+def check_softmax_backward_bf16(torch, kernels, serve, kitti_config, dev):
+    """``[softmax_backward_bf16]``: the kernel-1 VJP's bf16 mode on each of
+    a bf16 geo forward's 4 calls (its own bf16 operands, a seeded f32
+    output gradient) under :func:`hold_softmax_backward_bf16`, with the
+    wrapper's, the kernel's device, the plain version's and the widened
+    route's times (the operands cast to f32, the f32 mode, both gradients
+    cast back: the route before phase 23) and the bound; then the 4 calls
+    together. Returns the row of the first call (the point -> node call,
+    the f32 row's shape)."""
+    calls = geo_forward_softmax_calls(torch, serve, kitti_config, "bfloat16")
+    assert len(calls) == 4, len(calls)
+    gen = torch.Generator().manual_seed(23)
+    fn, plain = (kernels.segment_softmax_attend_backward,
+                 kernels.PLAIN["segment_softmax_attend_backward"])
+
+    def widened(attn, values, *rest):
+        da, dv = fn(attn.float(), values.float(), *rest)
+        return da.to(attn.dtype), dv.to(values.dtype)
+
+    rows, all_args = [], []
+    for i, (args, _) in enumerate(calls):
+        attn, values, idx, m = args
+        assert attn.dtype == values.dtype == torch.bfloat16, attn.dtype
+        g = torch.randn(B, m, attn.shape[-1], generator=gen).to(dev)
+        err, _ = hold_softmax_backward_bf16(torch, kernels, attn, values,
+                                            idx, m, g)
+        out, sums, gmax = kernels.segment_softmax_attend(
+            attn, values, idx, m, return_stats=True)
+        bargs = (attn, values, idx, out, sums, gmax, g, m)
+        all_args.append(bargs)
+        valid = int(((idx >= 0) & (idx < m)).sum().item())
+        row = dict(
+            max_abs_err=err, library_ms=None,
+            tol="rtol 2^-7 of the plain version on the same bf16 leaves "
+                "(one bf16 rounding); same bits on a second launch",
+            shape=f"[{B},{attn.shape[1]},{attn.shape[2]}] bf16 -> {m}, "
+                  f"{valid} rows in range",
+            ms=cuda_ms(lambda: fn(*bargs), 20),
+            device_ms=kernel_device_ms(lambda: fn(*bargs),
+                                       ("softmax_backward_kernel",)),
+            widened_ms=cuda_ms(lambda: widened(*bargs), 20),
+            plain_ms=cuda_ms(lambda: plain(*bargs), 5),
+            bound=softmax_backward_bound(attn, m, valid))
+        rows.append(row)
+        line("softmax_backward_bf16", call=i, shape=row["shape"],
+             max_abs_err=err, same_bits=True, kernel_ms=f"{row['ms']:.5f}",
+             device_ms=fmt_ms(row["device_ms"]),
+             widened_route_ms=f"{row['widened_ms']:.5f}",
+             plain_ms=f"{row['plain_ms']:.5f}",
+             bound_ms=f"{row['bound'][0]:.5f}", bound_by=row["bound"][1])
+
+    def each(f):
+        return lambda: [f(*a) for a in all_args]
+    line("softmax_backward_bf16", call="all", calls=len(all_args),
+         kernel_ms=f"{cuda_ms(each(fn), 5):.5f}",
+         device_ms=fmt_ms(kernel_device_ms(each(fn),
+                                           ("softmax_backward_kernel",),
+                                           iters=3)),
+         widened_route_ms=f"{cuda_ms(each(widened), 5):.5f}",
+         plain_ms=f"{cuda_ms(each(plain), 2):.5f}",
+         bound_ms=f"{sum(r['bound'][0] for r in rows):.5f}")
+    del calls, all_args
+    torch.cuda.empty_cache()
+    return rows[0]
+
+
+def run_geo_clis_bf16(torch, kernels, tmp: str) -> int:
+    """``[train_geo_bf16]``: ``cli.train_geo --dtype bfloat16`` for 4 steps
+    eager and 6 at ``--steps-per-dispatch 2`` (a capture and two replays):
+    the median steps/s of the eager steps after the first and of the
+    replays, peak memory, launches per step, the busy share of each, the
+    checkpoint's tensors all f32. Returns the kernel-1 VJP's launches in
+    one eager step."""
+    import os
+    from cmr_agent_tpu_torch.cli import train_geo as cli
+    from cmr_agent_tpu_torch.cli.common import tf32_precision
+    base = list(TRAIN_CLI_ARGV) + ["--dtype", "bfloat16", "--logdir",
+                                   os.path.join(tmp, "log")]
+    launches = None
+    for label, name, extra in (
+            ("eager", "make_geo_train_step", ["--steps", "4"]),
+            ("graph", "make_geo_multi_step",
+             ["--steps", "6", "--steps-per-dispatch", "2"])):
+        ck = os.path.join(tmp, "geo_bf16_" + label)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording(torch, kernels, cli, name) as rec:
+            state, lines = run_cli("train_geo_bf16", cli.main,
+                                   base + ["--ckpt-dir", ck] + extra)
+        wall = time.perf_counter() - t0
+        calls = rec[name]
+        fn, args = rec[(name, "last")]
+        assert any(ln.startswith("[val] step 0 loss") for ln in lines), lines
+        assert all(p.dtype == torch.float32
+                   for p in state.model.state_dict().values()
+                   if p.is_floating_point())
+        if label == "eager":
+            assert len(calls) == 4 and state.step == 4, (len(calls),
+                                                        state.step)
+            step_s = statistics.median(t for t, _ in calls[1:])
+            per_step = calls[-1][1]
+            launches = per_step["segment_softmax_attend_backward"]
+            assert launches == 4, per_step
+        else:
+            # the first call warms up twice and captures once
+            assert len(calls) == 3 and state.step == 6, (len(calls),
+                                                        state.step)
+            assert all(sum(c.values()) == 0 for _, c in calls[1:]), calls
+            step_s = statistics.median(t for t, _ in calls[1:]) / 2
+            per_step = {k: v / 3 for k, v in calls[0][1].items()}
+        assert all(per_step[k] > 0 for k in GEO_STEP_KERNELS), per_step
+        with tf32_precision():
+            device_ms, wall_ms = device_busy(torch, lambda: fn(*args))
+        steps_per_call = 1 if label == "eager" else 2
+        MEASURED[f"geo_bf16_{label}_steps_per_s"] = 1 / step_s
+        line("train_geo_bf16", mode=label, batch=B, dtype="bfloat16",
+             steps_per_s_median=f"{1 / step_s:.4f}",
+             timed_calls=len(calls) - 1, steps_per_call=steps_per_call,
+             call_ms=",".join(f"{t * 1e3:.2f}" for t, _ in calls),
+             run_s=f"{wall:.2f}",
+             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+             busy_share=f"{device_ms / wall_ms:.3f}",
+             device_ms_per_step=f"{device_ms / steps_per_call:.2f}",
+             checkpoints="|".join(ckpt_names(ck)),
+             **{f"launches_{k}": (f"{v:g}") for k, v in per_step.items()
+                if v})
+        del state, fn, args, rec
+    return launches
+
+
+def geo_bf16_twins(torch, kernels, serve, dev) -> None:
+    """Phase 6's gate in bf16 (:func:`compare_geo_twins`,
+    ``[geo_train_bf16_vs_plain]``), then the bf16 step's loss beside the
+    f32 step's on the same batch and weights, dropout off, full f32
+    (``[train_geo_bf16]`` mode=loss_vs_f32; reported, not held)."""
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.models.layers import set_dropout_rate
+    from cmr_agent_tpu_torch.train import train_geo
+    cfg = kitti_config(compute_dtype="bfloat16")
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
+    compare_geo_twins(torch, kernels, cfg, batch, dev,
+                      tag="geo_train_bf16_vs_plain")
+    losses = {}
+    for dtype in ("bfloat16", "float32"):
+        st = train_geo.create_geo_state(kitti_config(compute_dtype=dtype),
+                                        dev, seed=0)
+        set_dropout_rate(st.model, 0.0)
+        with torch.no_grad():
+            losses[dtype] = st.model.train()(batch, with_loss=True)
+        del st
+    got, want = (losses[k]["loss"].item() for k in ("bfloat16", "float32"))
+    line("train_geo_bf16", mode="loss_vs_f32", batch=B,
+         **{f"{k}_{d}": f"{losses[dt][k].item():.6f}"
+            for k in train_geo.LOSS_KEYS
+            for d, dt in (("bf16", "bfloat16"), ("f32", "float32"))},
+         loss_rel_diff=f"{abs(got - want) / abs(want):.3e}")
+
+
+def run_agent_cli_bf16(torch, kernels, serve, tmp: str, dev) -> None:
+    """``[train_agent_bf16]``: ``cli.train_agent --dtype bfloat16 --steps
+    4`` (4 rollouts, 32 updates): rollout and update ms, peak memory and
+    launches; then :func:`agent_train_twin` in bf16 (phase 7's update
+    gate, phase 4's bf16 logit gate on the agent's outputs)."""
+    import os
+    from cmr_agent_tpu_torch.cli import train_agent as cli
+    from cmr_agent_tpu_torch.config import kitti_config
+    from cmr_agent_tpu_torch.train import train_geo
+    ck = os.path.join(tmp, "agent_bf16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    names = ("make_rollout_fn", "make_ppo_update_step")
+    with recording(torch, kernels, cli, *names) as rec:
+        state, lines = run_cli("train_agent_bf16", cli.main, list(
+            TRAIN_CLI_ARGV) + ["--steps", "4", "--dtype", "bfloat16",
+                               "--ckpt-dir", ck, "--logdir",
+                               os.path.join(tmp, "log")])
+    wall = time.perf_counter() - t0
+    ro, up = rec["make_rollout_fn"], rec["make_ppo_update_step"]
+    cfg = state.agent.cfg
+    n_up = cfg.num_trajectory * B * cfg.action_num // cfg.ppo_batch_size
+    assert len(ro) == 4 and len(up) == n_up and state.step == n_up, (
+        len(ro), len(up), state.step)
+    assert cfg.compute_dtype == "bfloat16"
+    # training rollouts raster in bf16 through kernel 6a, never int8
+    assert ro[-1][1]["segment_mean_count_image"] == cfg.action_num, ro
+    assert all(p.dtype == torch.float32
+               for p in state.agent.state_dict().values()
+               if p.is_floating_point())
+    line("train_agent_bf16", mode="cli", batch=B, dtype="bfloat16",
+         rollout_ms=",".join(f"{t * 1e3:.2f}" for t, _ in ro),
+         update_ms_median=f"{statistics.median(t for t, _ in up) * 1e3:.3f}",
+         run_s=f"{wall:.2f}",
+         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         checkpoints="|".join(ckpt_names(ck)),
+         **{f"rollout_{k}": v for k, v in ro[-1][1].items() if v},
+         **{f"update_{k}": v for k, v in up[-1][1].items() if v})
+    del state, rec
+    cfg = kitti_config(compute_dtype="bfloat16")
+    batch = serve.synthetic_batch(cfg, B, dev, seed=0, keys=serve.TRAIN_KEYS)
+    geo = train_geo.create_geo_state(cfg, dev, seed=0).model.eval()
+    geo_out = train_geo.make_geo_forward(cfg)(geo, batch)
+    del geo
+    order = np.random.default_rng(cfg.seed).permutation(B * cfg.action_num)
+    agent_train_twin(torch, kernels, cfg, geo_out, batch, dev, order,
+                     "train_agent_bf16_vs_plain")
+
+
+def check_iter_train_twin_bf16(torch, kernels, serve, dev) -> None:
+    """``[train_iter_bf16_vs_plain]``: one bf16 IterModel train-mode
+    forward + backward at B = 8 under ``cost_volume_remat``, the kernels'
+    twin against the plain kernels' from the same weights and geo outputs:
+    the logits under phase 4's bf16 logit gate (atol 1e-2 + 3e-2 max|logit|),
+    the loss within one bf16 rounding (rtol 2^-8), the gradients f32 and
+    finite, two warp launches."""
+    from cmr_agent_tpu_torch.train import train_iter
+    cfg, st = iter_twin_state(torch, serve, dev, "bfloat16")
+    got = {}
+    for name in ("kernels", "plain"):
+        with (plain_kernels(kernels) if name == "plain"
+              else contextlib.nullcontext()):
+            model = train_iter.create_iter_state(cfg, dev,
+                                                 seed=0).model.train()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            out = model(st, with_loss=True)
+            out["cost_volume_loss"].backward()
+            got[name] = (out["cost_volume_loss"].detach(),
+                         out["cost_volume_logits"].detach(),
+                         [p.grad for p in model.parameters()],
+                         kernels.launch_counts()["segment_sum_shared"],
+                         torch.cuda.max_memory_allocated() / 2**30)
+            del model, out
+    (loss_k, logits_k, grads_k, warps, peak), (loss_p, logits_p, _, _, _) = \
+        got["kernels"], got["plain"]
+    assert warps == 2, warps
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in grads_k)
+    scale = logits_p.abs().max().item()
+    diff = (logits_k - logits_p).abs().max().item()
+    line("train_iter_bf16_vs_plain", batch=B, remat=True, warp_launches=warps,
+         peak_gib=f"{peak:.3f}", logits_dtype=str(logits_k.dtype),
+         loss_kernels=f"{loss_k.item():.7f}",
+         loss_plain=f"{loss_p.item():.7f}",
+         max_logit_diff=diff, logit_tol=1e-2 + 3e-2 * scale)
+    assert diff <= 1e-2 + 3e-2 * scale, (diff, scale)
+    torch.testing.assert_close(loss_k, loss_p, rtol=2.0 ** -8, atol=0)
+
+
+def run_train_bf16(torch, kernels, serve, kitti_config, dev) -> dict:
+    """Phase 23 (``--phase train_bf16``) after :func:`run_iter_worker`,
+    which its callers run first (its bf16 run is ``[train_iter_bf16]``
+    without remat): bf16 training at KITTI width, B = 8, each part's
+    seconds on ``[train_bf16_part]``. Returns the kernel-1 VJP's bf16 row
+    with its launches in one eager bf16 geo step."""
+    import gc
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        for name, fn in (
+                ("softmax_backward_bf16", lambda: out.update(
+                    row=check_softmax_backward_bf16(torch, kernels, serve,
+                                                    kitti_config, dev))),
+                ("train_geo_bf16", lambda: out.update(
+                    launches=run_geo_clis_bf16(torch, kernels, tmp))),
+                ("geo_bf16_twins", lambda: geo_bf16_twins(torch, kernels,
+                                                          serve, dev)),
+                ("train_agent_bf16", lambda: run_agent_cli_bf16(
+                    torch, kernels, serve, tmp, dev)),
+                ("train_iter_bf16_remat", lambda: run_iter_cli(
+                    torch, kernels, tmp, "remat", "bfloat16")),
+                ("train_iter_bf16_twin", lambda: check_iter_train_twin_bf16(
+                    torch, kernels, serve, dev))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            line("train_bf16_part", name=name,
+                 seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -5548,10 +5922,10 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     15, "eval" phase 18 (the E7 evaluation), "export" phase 19 (the
     composed artifact at ``hypotheses`` candidates), "train" phase 20 (the
     training entry points), "inputs" phase 21 (the reference's inputs),
-    "modules" phase 22 (the last modules). Returns the number of repeats
-    that failed their gate."""
+    "modules" phase 22 (the last modules), "train_bf16" phase 23 (bf16
+    training). Returns the number of repeats that failed their gate."""
     failed = 0
-    if phase == "train":
+    if phase in ("train", "train_bf16"):
         # once: after a repeat this process's allocator pins segments the
         # worker's step needs (see run_iter_worker)
         run_iter_worker(torch)
@@ -5585,6 +5959,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_inputs(torch, kernels, serve, dev)
             elif phase == "modules":
                 run_modules(torch, kernels, serve, kitti_config, dev)
+            elif phase == "train_bf16":
+                run_train_bf16(torch, kernels, serve, kitti_config, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -5606,8 +5982,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval|export|train|inputs|modules [--repeat N] [--hypotheses
-    K]``
+    factored|eval|export|train|inputs|modules|train_bf16 [--repeat N]
+    [--hypotheses K]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate); ``--hypotheses`` is the composed
     artifact's K under ``--phase export`` (13, E7's)."""
@@ -5617,7 +5993,7 @@ def main(argv=None) -> int:
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
                              "factored", "eval", "export", "train",
-                             "inputs", "modules"),
+                             "inputs", "modules", "train_bf16"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--hypotheses", type=int, default=13)
@@ -5625,8 +6001,9 @@ def main(argv=None) -> int:
                     choices=export_labels(True),
                     help="one exporter of phase 19, which starts them")
     ap.add_argument("--iter-cli-worker", metavar="DIR",
-                    help="phase 20's train_iter run without remat, its "
-                         "checkpoints under DIR")
+                    help="phase 20's and 23's train_iter runs without "
+                         "remat (f32, then bf16), their checkpoints "
+                         "under DIR")
     ap.add_argument("--parallel-worker", nargs=3,
                     metavar=("RANK", "DIR", "PORT"),
                     help="one of phase 22's two gloo ranks")
@@ -5643,7 +6020,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     if opts.iter_cli_worker:
-        run_iter_cli(torch, kernels, opts.iter_cli_worker, "plain")
+        import gc
+        for dtype in ("float32", "bfloat16"):
+            run_iter_cli(torch, kernels, opts.iter_cli_worker, "plain",
+                         dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
         return 0
     if opts.export_worker:
         export_worker(torch, kernels, serve, kitti_config, dev,
@@ -5775,8 +6157,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_modules(torch, kernels, serve, kitti_config, dev)
     line("sixteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bf16_train = run_train_bf16(torch, kernels, serve, kitti_config, dev)
+    rows["segment_softmax_attend_backward_bf16"] = bf16_train["row"]
+    line("seventeenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
-    # (f32; kernel 1's bf16 row the bf16 one), one geo train step, the
+    # (f32; kernel 1's bf16 row the bf16 one), one geo train step (the VJP's
+    # bf16 row one bf16 step of cli.train_geo), the
     # agent training run, one composed request, the "pack" episode, the
     # fused ("all", f32) episode, the "compact" (f32) or the "flat" (bf16 +
     # int8) episode, the three raster probes
@@ -5784,6 +6173,7 @@ def main(argv=None) -> int:
         "segment_softmax_attend"]
     counts.update({k: geo_counts[k] for k in ("segment_sum",
                                                "segment_softmax_attend_backward")})
+    counts["segment_softmax_attend_backward_bf16"] = bf16_train["launches"]
     counts["segment_mean_count_image"] = agent_counts["segment_mean_count_image"]
     counts["segment_sum_shared"] = composed_counts["segment_sum_shared"]
     counts["mask_compact_pack"] = pack_counts["mask_compact_pack"]
@@ -5804,6 +6194,8 @@ def main(argv=None) -> int:
         "segment_sum": ("segment_sum.cu", 258),
         "segment_softmax_attend_backward": ("segment_softmax_backward.cu",
                                             145),
+        "segment_softmax_attend_backward_bf16": (
+            "segment_softmax_backward.cu", 145),
         "segment_mean_count_image": ("raster.cu", 685),
         "segment_sum_shared": ("segment_sum_shared.cu", 320),
         "mask_compact_pack": ("mask_pack.cu", 1467),

@@ -18,10 +18,15 @@ Differences from the JAX package's CLIs:
   the ``nvcc`` build cache); ``--profile`` writes a ``torch.profiler``
   trace (:func:`..utils.profiling.trace_context`) where the JAX CLIs
   write a ``jax.profiler`` one;
-* the training CLIs train in float32 only: ``--dtype bfloat16`` raises
-  (:func:`refuse_bf16_training`, ROADMAP A.5), and their f32 matmuls and
-  convolutions run at TF32 (:func:`tf32_precision`), where PyTorch's own
-  default differs between the two (matmuls off, convolutions on);
+* the training CLIs' f32 matmuls and convolutions run at TF32
+  (:func:`tf32_precision`), where PyTorch's own default differs between
+  the two (matmuls off, convolutions on). ``--dtype bfloat16`` trains as
+  the JAX package does: parameters, optimizer state and BatchNorm running
+  statistics f32, activations bf16, the heads' outputs and the losses
+  f32; the segment-softmax VJP reads its bf16 operands as given and
+  rounds its gradients once to bf16. :func:`tf32_precision` stays on
+  then and covers only the matmuls and convolutions left in f32 (the
+  coordinate transforms); the bf16 layers and the kernels ignore it;
 * checkpoints are the weight exports of :mod:`..train.checkpoint`, found
   from the Orbax paths the JAX package's commands name, or the
   reference's ``.pth`` files (:func:`..train.convert.torch_to_state_dict`),
@@ -173,7 +178,8 @@ def tf32_precision(on: bool = True):
     training CLIs train at TF32, the f32 training mode: the JAX package's
     f32 at its default precision rounds these inputs further (to bf16 on
     the TPU), and full f32 takes the cost-volume tower ~10x as long. The
-    port's kernels are untouched by either setting."""
+    port's kernels, and the bf16 layers of ``--dtype bfloat16``, are
+    untouched by either setting."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = on
@@ -183,15 +189,6 @@ def tf32_precision(on: bool = True):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
-
-
-def refuse_bf16_training(cfg: Config) -> None:
-    """The training CLIs' check: the port trains in float32 only."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {cfg.compute_dtype}: the port trains in float32 only; "
-            "bf16 training is ROADMAP A.5 (the kernel-1 VJP's widening and "
-            "bf16 checks of every backward kernel)")
 
 
 def build_config(args) -> Config:

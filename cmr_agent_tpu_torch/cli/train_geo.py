@@ -31,7 +31,7 @@ from ..train.train_geo import (create_geo_state, make_geo_eval_step,
                                make_geo_multi_step, make_geo_train_step)
 from ..utils.profiling import trace_context
 from .common import (add_common_args, build_config, build_dataset,
-                     make_loader, refuse_bf16_training, set_seed,
+                     make_loader, set_seed,
                      tf32_precision, to_device, maybe_initialize_distributed)
 
 
@@ -52,7 +52,6 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     cfg = build_config(args)
-    refuse_bf16_training(cfg)
     set_seed(cfg.seed)
 
     train_ds = build_dataset(cfg, args, "train")

@@ -32,7 +32,7 @@ from ..train.train_iter import (cost_volume_metrics, create_iter_state,
 from ..utils.profiling import trace_context
 from .common import (add_common_args, apply_obs_overrides,
                      build_config, build_dataset, load_geo_variables,
-                     make_loader, refuse_bf16_training, set_seed,
+                     make_loader, set_seed,
                      tf32_precision, to_device, maybe_initialize_distributed)
 
 
@@ -59,7 +59,6 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     cfg = apply_obs_overrides(build_config(args), args)
-    refuse_bf16_training(cfg)
     set_seed(cfg.seed)
     val_interval = args.val_interval or cfg.val_interval
 

@@ -77,8 +77,8 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _P],
     "cmr_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cmr_segment_sum_scratch_bytes": [_I, _I, _I, _I],
-    "cmr_segment_softmax_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _P],
+    "cmr_segment_softmax_backward": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _P],
     "cmr_raster_image": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],
     "cmr_segment_sum_shared": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -664,15 +664,22 @@ def segment_softmax_attend_backward_plain(
     residuals (``out``, ``sums``, ``gmax``) and the output gradient
     ``grad [B,M,F]`` -> ``(dattn, dvalues)`` ``[B,N,F]``: with ``w =
     exp(attn - gmax) / max(sums[seg], 1e-30)``, ``dvalues = w g[seg]`` and
-    ``dattn = w g[seg] (values - out[seg])``; 0 for routed-out rows."""
+    ``dattn = w g[seg] (values - out[seg])``; 0 for routed-out rows.
+
+    bf16 operands are widened to f32 first, as the forward widened them,
+    and the two gradients are rounded once to bf16 at the end: the kernel's
+    bf16 mode, the exact derivative of the widened forward rounded to the
+    operands' dtype."""
+    dt = torch.promote_types(attn.dtype, torch.float32)
     valid = ((idx >= 0) & (idx < num_segments))[..., None]
 
     def at(table):
         return gather_rows_plain(table, idx)
 
-    w = torch.exp(attn - gmax[:, None, :]) / at(sums).clamp_min(1e-30)
+    w = torch.exp(attn.to(dt) - gmax[:, None, :]) / at(sums).clamp_min(1e-30)
     gw = torch.where(valid, w, torch.zeros_like(w)) * at(grad)
-    return gw * (values - at(out)), gw
+    dattn = gw * (values.to(dt) - at(out))
+    return dattn.to(attn.dtype), gw.to(values.dtype)
 
 
 def segment_softmax_attend_backward(
@@ -680,25 +687,29 @@ def segment_softmax_attend_backward(
         out: torch.Tensor, sums: torch.Tensor, gmax: torch.Tensor,
         grad: torch.Tensor, num_segments: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper of :func:`segment_softmax_attend_backward_plain`: all
-    f32, int32 ``idx``; the gather of the three ``[B,M,F]`` tables is fused
-    into the kernel."""
+    """Kernel wrapper of :func:`segment_softmax_attend_backward_plain`:
+    ``attn`` and ``values`` both f32 or both bf16, read as given and
+    widened in registers; ``out``, ``sums``, ``gmax`` and ``grad`` f32;
+    int32 ``idx``. The gradients come out in the operands' dtype (bf16:
+    the f32 result rounded once); the gather of the three ``[B,M,F]``
+    tables is fused into the kernel. Any other dtype on the card raises."""
     if not _on_cuda(attn, values, idx, out, sums, gmax, grad):
         return segment_softmax_attend_backward_plain(
             attn, values, idx, out, sums, gmax, grad, num_segments)
     b, n, f = attn.shape
     m = int(num_segments)
-    for name, t, shape in (("attn", attn, (b, n, f)),
-                           ("values", values, (b, n, f)),
-                           ("out", out, (b, m, f)), ("sums", sums, (b, m, f)),
+    _require("attn", attn, (torch.float32, torch.bfloat16), (b, n, f))
+    _require("values", values, (attn.dtype,), (b, n, f))
+    for name, t, shape in (("out", out, (b, m, f)), ("sums", sums, (b, m, f)),
                            ("gmax", gmax, (b, f)), ("grad", grad, (b, m, f))):
         _require(name, t, (torch.float32,), shape)
     _require("idx", idx, (torch.int32,), (b, n))
     dattn = torch.empty_like(attn)
     dvalues = torch.empty_like(values)
     _launch("cmr_segment_softmax_backward", _ptr(attn), _ptr(values),
-            _ptr(idx), _ptr(out), _ptr(sums), _ptr(gmax), _ptr(grad),
-            _ptr(dattn), _ptr(dvalues), b, n, m, f, _stream())
+            int(attn.dtype == torch.bfloat16), _ptr(idx), _ptr(out),
+            _ptr(sums), _ptr(gmax), _ptr(grad), _ptr(dattn), _ptr(dvalues),
+            b, n, m, f, _stream())
     segment_softmax_attend_backward.launches += 1
     return dattn, dvalues
 
@@ -1371,12 +1382,12 @@ class SegmentSoftmaxAttendFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         attn, values, idx, out, sums, gmax = ctx.saved_tensors
-        # bf16 operands widened as the forward widened them; the gradients
-        # come back in the operands' dtypes (the VJP of the widening cast)
+        # bf16 operands go to the kernel as given (it widens them as the
+        # forward did) and their gradients come back in bf16
         dattn, dvalues = segment_softmax_attend_backward(
-            attn.float(), values.float(), idx, out, sums, gmax,
-            grad.float().contiguous(), ctx.num_segments)
-        return dattn.to(attn.dtype), dvalues.to(values.dtype), None, None
+            attn, values, idx, out, sums, gmax, grad.float().contiguous(),
+            ctx.num_segments)
+        return dattn, dvalues, None, None
 
 
 class GatherRowsFn(torch.autograd.Function):

@@ -230,7 +230,10 @@ def make_sharded_geo_train_step(cfg: Config, mesh: Mesh):
     (:func:`..train.train_geo.make_geo_train_step` with ``mesh``): the
     BatchNorm statistics, dropout masks, losses, metrics and gradients are
     the global batch's. Every rank holds the same state (:func:`replicate`)
-    and passes an identically seeded generator."""
+    and passes an identically seeded generator. ``cfg.compute_dtype``
+    bfloat16 trains as one process does (f32 parameters and statistics,
+    bf16 activations; the BatchNorm sums all-reduced in f32); a model
+    built in another dtype than ``cfg``'s raises at the first step."""
     from ..train.train_geo import make_geo_train_step
 
     step = make_geo_train_step(cfg, mesh=mesh)

@@ -20,10 +20,11 @@ on all of them alike; the mean of the two is reported:
 
     python -m cmr_agent_tpu_torch.tools.train_probe [--batch 8] [--steps 30]
 
-The port trains in float32 only: another ``--dtype`` raises. Prints one
-JSON line ``{ms_per_step: {variant: ms}, residue_vs_pure_ms, batch, dtype,
-device}``; diagnostics on stderr. With ``--device cpu`` (a rehearsal) the
-times are the CPU's.
+``--dtype bfloat16`` times the bf16 step (the JAX tool's default; this
+tool keeps float32, the dtype chip_smoke.py times it in).
+Prints one JSON line ``{ms_per_step: {variant: ms}, residue_vs_pure_ms,
+batch, dtype, device}``; diagnostics on stderr. With ``--device cpu`` (a
+rehearsal) the times are the CPU's.
 """
 
 from __future__ import annotations
@@ -53,19 +54,17 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=30)
-    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
     ap.add_argument("--config", default="kitti", choices=sorted(CONFIGS),
                     help="model width (kitti for the measurement; tiny or "
                          "micro for a CPU rehearsal)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for a rehearsal")
     args = ap.parse_args(argv)
-    if args.dtype != "float32":
-        raise ValueError(f"the port trains in float32 only, got "
-                         f"--dtype {args.dtype}")
 
     dev = serve.resolve_device(args.device)
-    cfg = CONFIGS[args.config]()
+    cfg = CONFIGS[args.config](compute_dtype=args.dtype)
     host_batch = serve.synthetic_batch(cfg, args.batch, "cpu", seed=0,
                                        keys=serve.TRAIN_KEYS)
     host_np = {k: v.numpy() for k, v in host_batch.items()}

@@ -18,6 +18,7 @@ a loop of :func:`make_geo_train_step`.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, Dict, Optional
 
 import torch
@@ -61,6 +62,20 @@ def create_geo_state(cfg: Config, device="cuda", seed: int = 0,
 LOSS_KEYS = METRIC_KEYS[:4]
 
 
+def require_compute_dtype(cfg: Config, model: nn.Module) -> None:
+    """Raises unless every layer of ``model`` that fixes a compute dtype
+    (the dense and conv layers) computes in ``cfg``'s: a model built
+    under another config would train in its own dtype, silently, behind
+    the step's ``--dtype``."""
+    want = cfg.torch_dtype()
+    got = {m.compute_dtype for m in model.modules()
+           if getattr(m, "compute_dtype", None) is not None}
+    if got - {want}:
+        raise ValueError(f"the model computes in {sorted(map(str, got))}, "
+                         f"the config asks for {want}: build the model "
+                         f"from the step's config")
+
+
 def make_geo_train_step(cfg: Config, mesh=None) -> Callable:
     """``(state, batch, generator=None) -> metrics``: one optimizer step
     on ``batch`` (the synthetic/loader batch dict as tensors on the
@@ -71,11 +86,17 @@ def make_geo_train_step(cfg: Config, mesh=None) -> Callable:
     of a global batch: the forward runs under the mesh (global BatchNorm
     statistics, dropout masks and P/R/A counts), the gradients and the
     losses are averaged over dp, so every rank takes the step one process
-    takes on the global batch."""
+    takes on the global batch. A model whose layers compute in another
+    dtype than ``cfg.compute_dtype`` is refused at its first step
+    (:func:`require_compute_dtype`)."""
     from ..parallel.mesh import average_gradients, mean_over, use_mesh
+    checked = weakref.WeakSet()
 
     def train_step(state: GeoTrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
+        if state.model not in checked:
+            require_compute_dtype(cfg, state.model)
+            checked.add(state.model)
         state.model.train()
         set_dropout_generator(state.model, generator)
         state.optimizer.zero_grad()

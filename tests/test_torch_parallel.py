@@ -15,7 +15,8 @@ single-process results and the JAX package's. What they show:
   JAX package's ``tests/test_distributed.py`` bounds), the P/R/A metrics
   and the BatchNorm running stats the global batch's, equal on both ranks;
   and the per-rank statistics of a plain data-parallel wrap would miss
-  those bounds on these inputs;
+  those bounds on these inputs; in bf16 its losses are within one bf16
+  rounding of one process's, and a model built in f32 is refused;
 * under dp the deterministic val episode and one SGD PPO update match
   the single process's (rtol 1e-4, the JAX package's
   ``tests/test_parallel.py`` bounds);
@@ -120,6 +121,20 @@ _WORKER = textwrap.dedent("""
     out["geo_metrics"].append(step(state, inp["batch"], gen))
     out["geo_params"] = {k: v.clone() for k, v in
                          state.model.state_dict().items()}
+
+    # the dp step in bf16, and its refusal of a model built in f32
+    bcfg = inp["bf16_cfg"]
+    bstate = train_geo.create_geo_state(bcfg, device="cpu", seed=0)
+    bstep = M.make_sharded_geo_train_step(bcfg, dp)
+    out["bf16_metrics"] = bstep(bstate, inp["batch"],
+                                torch.Generator().manual_seed(1))
+    out["bf16_params"] = {k: v.clone() for k, v in
+                          bstate.model.state_dict().items()}
+    try:
+        bstep(state, inp["batch"], gen)
+        out["bf16_refused_f32_model"] = False
+    except ValueError:
+        out["bf16_refused_f32_model"] = True
 
     # the sharded forward: dp rows gathered, and the sp route
     model = MultiHeadModel(cfg)
@@ -251,7 +266,9 @@ def pair(tmp_path_factory):
     v = rng.normal(size=(2, 40, 4, 8))
     qkv = [torch.from_numpy(a.astype(np.float32)) for a in (q, k, v)]
     la, la_xy, la_want = _jax_linear_attention()
+    bcfg = micro_config(train_batch_size=B, compute_dtype="bfloat16")
     torch.save({"cfg": cfg, "batch": batch, "model": model.state_dict(),
+                "bf16_cfg": bcfg,
                 "agent_cfg": acfg, "geo_out": geo_out, "mb": mb,
                 "qkv": qkv, "la": la.state_dict(), "la_xy": la_xy,
                 "la_dim": LA_SHAPE["c"], "la_heads": LA_SHAPE["heads"]},
@@ -270,12 +287,16 @@ def pair(tmp_path_factory):
     geo_metrics = [step(state, batch, gen)]
     geo_stats = {k: v.clone() for k, v in state.model.state_dict().items()}
     geo_metrics.append(step(state, batch, gen))
+    bstate = train_geo.create_geo_state(bcfg, device="cpu", seed=0)
+    bf16_metrics = train_geo.make_geo_train_step(bcfg)(
+        bstate, batch, torch.Generator().manual_seed(1))
     _, rte, rre = train_agent.make_val_episode_fn(acfg)(agent, geo_out, batch)
     ppo = train_agent.make_ppo_update_step(acfg)(agent, mb)
     with torch.no_grad():
         forward = model.eval()(batch, with_loss=False)
     return dict(ranks=ranks, cfg=cfg, batch=batch, state=state,
                 geo_metrics=geo_metrics, geo_stats=geo_stats,
+                bf16_state=bstate, bf16_metrics=bf16_metrics,
                 val=(rte, rre), ppo=ppo,
                 agent=agent, forward=forward, qkv=qkv, la=la, la_xy=la_xy,
                 la_want=la_want)
@@ -309,6 +330,32 @@ def test_dp_geo_step_equals_the_single_process_step(pair):
         np.testing.assert_allclose(_checksum(r["geo_params"]), want_sum,
                                    rtol=5e-5)
     a, b = (r["geo_params"] for r in pair["ranks"])
+    assert all(torch.equal(a[k], b[k]) for k in a)      # one program
+
+
+def test_dp_geo_step_trains_in_bf16(pair):
+    """``compute_dtype="bfloat16"`` through the sharded step: f32
+    parameters and stats on both ranks, the same bits on both; a model
+    built in f32 refused by the bf16 step rather than trained in f32. The
+    ranks' BatchNorm sums reach the statistics in another order than one
+    process's, which moves some bf16 roundings: the losses within one
+    bf16 rounding (rtol 2**-8; 7.3e-4 measured on the CPU host) of one
+    process's bf16 step, the parameter checksum after it within rtol 4e-4
+    (3.8e-5 measured)."""
+    want = pair["bf16_metrics"]
+    want_sd = pair["bf16_state"].model.state_dict()
+    for r in pair["ranks"]:
+        assert r["bf16_refused_f32_model"]
+        for k in train_geo.LOSS_KEYS:
+            got = r["bf16_metrics"][k]
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.item(), want[k].item(),
+                                       rtol=2 ** -8, err_msg=k)
+        assert all(v.dtype == torch.float32 for v in
+                   r["bf16_params"].values() if v.is_floating_point())
+        np.testing.assert_allclose(_checksum(r["bf16_params"]),
+                                   _checksum(want_sd), rtol=4e-4)
+    a, b = (r["bf16_params"] for r in pair["ranks"])
     assert all(torch.equal(a[k], b[k]) for k in a)      # one program
 
 

@@ -406,10 +406,15 @@ def test_train_probe_runs_on_cpu():
     assert all(v > 0.0 for v in out["ms_per_step"].values())
     assert set(out["residue_vs_pure_ms"]) == set(variants[1:])
     assert out["batch"] == 2 and out["dtype"] == "float32"
-    with pytest.raises(ValueError, match="float32"):
+    out = _tool("train_probe").main(TOOL_ARGS["train_probe"]
+                                    + ["--device", "cpu", "--dtype",
+                                       "bfloat16"])
+    assert out["dtype"] == "bfloat16"
+    assert all(v > 0.0 for v in out["ms_per_step"].values())
+    with pytest.raises(SystemExit):
         _tool("train_probe").main(TOOL_ARGS["train_probe"]
                                   + ["--device", "cpu", "--dtype",
-                                     "bfloat16"])
+                                     "float16"])
 
 
 def test_episode_trace_runs_on_cpu():

@@ -23,10 +23,14 @@ import optax
 import pytest
 import torch
 
+from cmr_agent_tpu.config import Config as JaxConfig
 from cmr_agent_tpu.config import micro_config as jax_micro_config
 from cmr_agent_tpu.data import SyntheticDataset, collate
 from cmr_agent_tpu.env import buffer as jax_buffer
 from cmr_agent_tpu.env import environment as jax_env
+from cmr_agent_tpu.models import CMRAgent as JaxCMRAgent
+from cmr_agent_tpu.models import agent as jax_agent
+from cmr_agent_tpu.models import layers as jax_layers
 from cmr_agent_tpu.ops import geometry as jax_geometry
 from cmr_agent_tpu.train import train_agent as jax_train_agent
 from cmr_agent_tpu.train.train_geo import create_geo_state, make_geo_forward
@@ -37,6 +41,10 @@ from cmr_agent_tpu_torch.ops import geometry, kernels
 from cmr_agent_tpu_torch.train import train_agent
 from cmr_agent_tpu_torch.train.convert import flax_to_state_dict
 from cmr_agent_tpu_torch.train.optim import Optimizer
+from test_torch_train_geo import F64Numpy
+from test_torch_train_kernels import (
+    BF16_ULP, assert_scalar_within_jax_bf16_noise,
+    assert_within_jax_bf16_noise)
 
 B = 2
 GEO_KEYS = ("pc", "pc_overlap_pred", "pc_geo_feat", "img_geo_feat")
@@ -286,7 +294,114 @@ def agent_run():
                 raster_calls=len(raster_calls), cfg=cfg,
                 want_metrics=want_metrics, got_metrics=got_metrics,
                 want_grads=want_grads, grads=grads, want_stats=want_stats,
-                agent=agent, params_before=params_before, state=tstate)
+                agent=agent, params_before=params_before, state=tstate,
+                params=params, stats=stats, minibatch=mb)
+
+
+def _jax_update_grads(jcfg, params, stats, mb):
+    """The JAX update step's gradients, metrics and running stats, from a
+    fresh state (the step donates its input)."""
+    cap = _capture_grads()
+    jstate = jax_train_agent.AgentTrainState(
+        step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+        opt_state=cap.init(params), tx=cap,
+        apply_fn=JaxCMRAgent(jcfg).apply)
+    new, metrics = jax_train_agent.make_ppo_update_step(jcfg)(jstate, mb)
+    return (jax.tree_util.tree_map(np.asarray, new.opt_state),
+            {k: float(v) for k, v in metrics.items()},
+            jax.tree_util.tree_map(np.asarray, new.batch_stats))
+
+
+@pytest.fixture(scope="module")
+def bf16_update(agent_run):
+    """One BC + PPO update with ``compute_dtype="bfloat16"`` in both
+    packages on :func:`agent_run`'s weights and minibatch, and the JAX
+    update at f64 compute as the reference (the config's dtype, the
+    layers' BatchNorm and the agent module's f32 casts patched to f64)."""
+    jcfg, cfg = (jax_micro_config(compute_dtype="bfloat16"),
+                 micro_config(compute_dtype="bfloat16"))
+    params, stats, mb = (agent_run[k] for k in ("params", "stats",
+                                                "minibatch"))
+    want = _jax_update_grads(jcfg, jax.tree_util.tree_map(jnp.asarray,
+                                                          params), stats,
+                             {k: jnp.asarray(v) for k, v in mb.items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxConfig, "jnp_dtype", lambda self: jnp.float64)
+        mp.setattr(jax_layers, "jnp", F64Numpy())
+        mp.setattr(jax_agent, "jnp", F64Numpy())
+        with jax.enable_x64(True):
+            f64 = lambda t: jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64)
+                if np.asarray(a).dtype == np.float32 else jnp.asarray(a), t)
+            ref = _jax_update_grads(jax_micro_config(), f64(params),
+                                    f64(stats), f64(mb))
+    agent = CMRAgent(cfg)
+    agent.load_state_dict(flax_to_state_dict(
+        cfg, {"params": params, "batch_stats": stats}, "agent"))
+    state = train_agent.AgentTrainState(agent,
+                                        Optimizer(cfg, agent.parameters()))
+    grads, step = {}, state.optimizer.step
+
+    def record_and_step():
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in agent.named_parameters()})
+        step()
+    state.optimizer.step = record_and_step
+    dtypes = set()
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o: dtypes.add(o.dtype)) for m in agent.modules()
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d))]
+    metrics = train_agent.make_ppo_update_step(cfg)(
+        state, {k: _t(v) for k, v in mb.items()})
+    for h in hooks:
+        h.remove()
+
+    def sd(p, st):
+        f32 = lambda t: jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), t)
+        return flax_to_state_dict(cfg, {"params": f32(p),
+                                        "batch_stats": f32(st)}, "agent")
+    return dict(agent=agent, grads=grads, metrics=metrics, dtypes=dtypes,
+                want_metrics=want[1], ref_metrics=ref[1],
+                want_grads=sd(want[0], stats), ref_grads=sd(ref[0], stats),
+                want_stats=sd(params, want[2]), ref_stats=sd(params, ref[2]))
+
+
+@pytest.mark.parametrize("key", train_agent.METRIC_KEYS)
+def test_bf16_ppo_update_loss_terms_match_jax(bf16_update, key):
+    """Each loss term f32 and under the gate of
+    ``assert_scalar_within_jax_bf16_noise`` with a floor of one bf16
+    rounding of the reference."""
+    got = bf16_update["metrics"][key]
+    assert got.dtype == torch.float32, key
+    ref = bf16_update["ref_metrics"][key]
+    assert_scalar_within_jax_bf16_noise(
+        got.item(), bf16_update["want_metrics"][key], ref,
+        BF16_ULP * abs(ref))
+
+
+def test_bf16_ppo_update_gradients_and_stats_match_jax(bf16_update,
+                                                       record_property):
+    """Every parameter gradient (before the optimizer's clipping) and
+    running statistic under the bf16 gate (``test_torch_train_kernels.
+    py``); parameters, gradients and stats f32, every dense and conv layer
+    computed in bf16."""
+    agent = bf16_update["agent"]
+    assert bf16_update["dtypes"] == {torch.bfloat16}
+    grads = {}
+    for name, p in agent.named_parameters():
+        g = bf16_update["grads"][name]
+        assert p.dtype == g.dtype == torch.float32, name
+        grads[name] = (g.numpy(), bf16_update["want_grads"][name].numpy(),
+                       bf16_update["ref_grads"][name].numpy())
+    record_property("gradients", assert_within_jax_bf16_noise(grads))
+    stats = {name: (buf.numpy(), bf16_update["want_stats"][name].numpy(),
+                    bf16_update["ref_stats"][name].numpy())
+             for name, buf in agent.named_buffers()
+             if name.endswith(("running_mean", "running_var"))}
+    assert all(buf.dtype == torch.float32 for buf in agent.buffers())
+    record_property("running_stats",
+                    assert_within_jax_bf16_noise(stats, gradients=False))
 
 
 def test_expert_rollout_actions_and_poses_match_jax(agent_run):

@@ -499,10 +499,42 @@ def test_train_iter_cli_always_saves_the_final_checkpoint(micro_cli, capsys,
                                       "ck/iter_micro/epoch-1-step-3"]
 
 
-@pytest.mark.parametrize("cli", [cli_geo, cli_agent, cli_iter])
-def test_training_clis_refuse_bf16(micro_cli, cli):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        cli.main(micro_cli("--steps", "1", "--dtype", "bfloat16"))
+@pytest.mark.parametrize("cli,extra", [
+    (cli_geo, ("--steps", "2")),
+    (cli_geo, ("--steps", "2", "--steps-per-dispatch", "2")),
+    (cli_agent, ("--steps", "2")),
+    (cli_iter, ("--steps", "2", "--unmasked-warp"))])
+def test_training_clis_train_in_bf16(micro_cli, cli, extra):
+    """``--dtype bfloat16`` trains as the JAX package's CLIs do, the geo
+    CLI also through the multi-step (on the CPU a loop of eager steps):
+    every dense and conv layer the run calls puts out bf16, and every
+    checkpoint it writes holds f32 parameters, running stats and Adam
+    moments, finite."""
+    seen = set()
+
+    def hook(module, args, out):
+        if isinstance(module, (torch.nn.Linear, torch.nn.Conv2d)):
+            seen.add(out.dtype)
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        state = cli.main(micro_cli(*extra, "--dtype", "bfloat16"))
+    finally:
+        handle.remove()
+    assert seen == {torch.bfloat16}
+    assert state.step >= 2
+    files = glob.glob(str(micro_cli.root / "ck" / "**" / "model"),
+                      recursive=True)
+    assert files
+    for path in files:
+        saved = [torch.load(path, weights_only=True)["module"],
+                 torch.load(os.path.join(os.path.dirname(path), "opt"),
+                            weights_only=True)["optimizer"]["state"]]
+        tensors = list(saved[0].values()) + [
+            v for st in saved[1].values() for v in st.values()
+            if torch.is_tensor(v) and v.ndim > 0]
+        floats = [t for t in tensors if t.is_floating_point()]
+        assert floats and all(t.dtype == torch.float32 for t in floats)
+        assert all(torch.isfinite(t).all() for t in floats)
 
 
 def test_profile_flag_writes_a_trace(micro_cli):

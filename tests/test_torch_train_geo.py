@@ -25,8 +25,10 @@ from cmr_agent_tpu.config import micro_config as jax_micro_config
 from cmr_agent_tpu.data import SyntheticDataset, collate
 from cmr_agent_tpu.models import MultiHeadModel as JaxMultiHead
 from cmr_agent_tpu.models import layers as jax_layers
+from cmr_agent_tpu.models import point_encoder as jax_point_encoder
 from cmr_agent_tpu.models.layers import BatchNorm as JaxBatchNorm
 from cmr_agent_tpu.ops import losses as jax_losses
+from cmr_agent_tpu.ops.pallas_kernels import segment_softmax_attend_fused
 from cmr_agent_tpu.train.optim import make_lr_schedule as jax_schedule
 from cmr_agent_tpu.train.optim import make_optimizer as jax_optimizer
 from cmr_agent_tpu_torch.config import Config, micro_config
@@ -37,6 +39,9 @@ from cmr_agent_tpu_torch.ops import losses
 from cmr_agent_tpu_torch.train import train_geo
 from cmr_agent_tpu_torch.train.convert import flax_to_state_dict
 from cmr_agent_tpu_torch.train.optim import Optimizer, make_lr_schedule
+from test_torch_train_kernels import (
+    BF16_ULP, assert_scalar_within_jax_bf16_noise,
+    assert_within_jax_bf16_noise)
 
 LABEL_KEYS = ("img", "pc", "node", "pt2node", "K", "P", "pc_mask", "img_mask",
               "pc_idx_for_circle_loss", "pc_xy_float_for_circle_loss",
@@ -100,16 +105,27 @@ def step():
         # variance E[x^2] - E[x]^2), and each package's f32 gradient of the
         # image branch's first convs is off the exact one by 1-3% of the
         # tensor's max, each in its own way: 100x the tolerance below.
+        # Its loss terms, metrics and BatchNorm stats are the bf16 tests'
+        # reference too.
         mp.setattr(JaxConfig, "jnp_dtype", lambda self: jnp.float64)
         mp.setattr(jax_layers, "jnp", F64Numpy())
         with jax.enable_x64(True):
             f64 = lambda t: jax.tree_util.tree_map(
                 lambda a: jnp.asarray(a, jnp.float64)
                 if np.asarray(a).dtype == np.float32 else jnp.asarray(a), t)
-            grads = jax.grad(lambda p: model.apply(
-                {"params": p, "batch_stats": f64(stats)}, f64(jb),
-                train=True, with_loss=True, mutable=["batch_stats"]
-            )[0]["loss"])(f64(params))
+
+            def loss64(p, st, b):
+                out, mutated = model.apply(
+                    {"params": p, "batch_stats": st}, b, train=True,
+                    with_loss=True, mutable=["batch_stats"])
+                return out["loss"], (out, mutated["batch_stats"])
+
+            grads, (out64, stats64) = jax.jit(jax.grad(
+                loss64, has_aux=True))(f64(params), f64(stats), f64(jb))
+            ref64 = dict(
+                grads=_numpy_tree(grads),
+                out={k: float(out64[k]) for k in train_geo.METRIC_KEYS},
+                stats=_numpy_tree(stats64))
             grads = jax.tree_util.tree_map(
                 lambda a: np.asarray(a, np.float32), grads)
 
@@ -138,7 +154,8 @@ def step():
         "multihead")
     return dict(port=port, port64=port64, out=out, jout=jout,
                 want_grads=want_grads,
-                want_stats=want_stats)
+                want_stats=want_stats, params=params, stats=stats,
+                batch_np=batch_np, ref64=ref64)
 
 
 @pytest.mark.parametrize("key", train_geo.METRIC_KEYS)
@@ -171,6 +188,109 @@ def test_batchnorm_stats_after_the_step_match_jax(step):
             np.testing.assert_allclose(buf.numpy(),
                                        step["want_stats"][name].numpy(),
                                        rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def _state_dict(cfg, params, stats):
+    f32 = lambda t: jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), t)
+    return flax_to_state_dict(cfg, {"params": f32(params),
+                                    "batch_stats": f32(stats)}, "multihead")
+
+
+@pytest.fixture(scope="module")
+def bf16_step(step):
+    """The same step with ``compute_dtype="bfloat16"`` in both packages
+    (parameters and BatchNorm stats f32, activations bf16), from the
+    weights and batch of :func:`step`: the JAX side with its segment
+    softmax through the Pallas kernel in interpret mode (its TPU route,
+    as ``tests/test_torch_checkpoint.py`` runs it), jitted; its f64
+    reference is :func:`step`'s (the XLA segment softmax: exact at f64
+    either way)."""
+    jcfg, cfg = (jax_micro_config(compute_dtype="bfloat16"),
+                 micro_config(compute_dtype="bfloat16"))
+    params, stats = step["params"], step["stats"]
+    jb = {k: jnp.asarray(v) for k, v in step["batch_np"].items()}
+    model = JaxMultiHead(jcfg)
+
+    def fused(attn, values, idx, m, use_pallas=None):
+        return segment_softmax_attend_fused(
+            attn, values, idx.astype(jnp.int32), m, interpret=True)
+
+    def loss_fn(p, b):
+        out, mutated = model.apply(
+            {"params": p, "batch_stats": stats}, b, train=True,
+            with_loss=True, mutable=["batch_stats"])
+        return out["loss"], (out, mutated["batch_stats"])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+        mp.setattr(jax_point_encoder, "batched_segment_softmax_attend",
+                   fused)
+        grads, (jout, jstats) = jax.jit(jax.grad(loss_fn, has_aux=True))(
+            params, jb)
+    port = MultiHeadModel(cfg)
+    port.load_state_dict(_state_dict(cfg, params, stats))
+    set_dropout_rate(port, 0.0)
+    port.train()
+    dtypes = set()
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o: dtypes.add(o.dtype)) for m in port.modules()
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d))]
+    out = port({k: torch.from_numpy(v) for k, v in step["batch_np"].items()},
+               with_loss=True)
+    for h in hooks:
+        h.remove()
+    out["loss"].backward()
+    ref = step["ref64"]
+    return dict(port=port, out=out, jout=jout, dtypes=dtypes,
+                grads=_state_dict(cfg, grads, stats),
+                stats=_state_dict(cfg, params, jstats),
+                ref_grads=_state_dict(cfg, ref["grads"], stats),
+                ref_out=ref["out"],
+                ref_stats=_state_dict(cfg, params, ref["stats"]))
+
+
+@pytest.mark.parametrize("key", train_geo.METRIC_KEYS)
+def test_bf16_loss_terms_and_metrics_match_jax(bf16_step, key):
+    """The gate of ``assert_scalar_within_jax_bf16_noise``: losses with a
+    floor of one bf16 rounding of the reference; the P/R/A shares count
+    argmax decisions, and a near tie may fall either way in bf16, so their
+    floor is two decisions of the smallest count here (the image recall's
+    230 positives; one flipped there in the port, none in JAX's step)."""
+    got = bf16_step["out"][key]
+    assert got.dtype == torch.float32, key
+    ref = bf16_step["ref_out"][key]
+    floor = 2 / 230 if key.endswith(("precision", "recall", "accuracy")) \
+        else BF16_ULP * abs(ref)
+    assert_scalar_within_jax_bf16_noise(got.item(),
+                                        float(bf16_step["jout"][key]), ref,
+                                        floor)
+
+
+def test_bf16_parameter_gradients_and_stats_match_jax(bf16_step,
+                                                      record_property):
+    """Every parameter gradient and running statistic under the bf16 gate
+    (``test_torch_train_kernels.py``); parameters, gradients and running
+    stats stay f32, every dense and conv layer computed in bf16."""
+    port = bf16_step["port"]
+    assert bf16_step["dtypes"] == {torch.bfloat16}
+    grads = {}
+    for name, p in port.named_parameters():
+        assert p.dtype == p.grad.dtype == torch.float32, name
+        grads[name] = (p.grad.numpy(), bf16_step["grads"][name].numpy(),
+                       bf16_step["ref_grads"][name].numpy())
+    assert len(grads) == len(bf16_step["grads"]) - sum(
+        k.endswith(("running_mean", "running_var"))
+        for k in bf16_step["grads"])
+    record_property("gradients", assert_within_jax_bf16_noise(grads))
+    stats = {}
+    for name, buf in port.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            assert buf.dtype == torch.float32, name
+            stats[name] = (buf.numpy(), bf16_step["stats"][name].numpy(),
+                           bf16_step["ref_stats"][name].numpy())
+    record_property("running_stats",
+                    assert_within_jax_bf16_noise(stats, gradients=False))
 
 
 @pytest.mark.parametrize("shape,dim", [((3, 40, 6), -1), ((2, 6, 5, 7), 1)])

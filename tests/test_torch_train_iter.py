@@ -20,11 +20,14 @@ import flax.linen as fnn
 import pytest
 import torch
 
+from cmr_agent_tpu.config import Config as JaxConfig
 from cmr_agent_tpu.config import micro_config as jax_micro_config
 from cmr_agent_tpu.config import tiny_config as jax_tiny_config
 from cmr_agent_tpu.data import SyntheticDataset, collate
 from cmr_agent_tpu.models import IterModel as JaxIterModel
 from cmr_agent_tpu.models import MultiHeadModel as JaxMultiHead
+from cmr_agent_tpu.models import cost_volume as jax_cost_volume
+from cmr_agent_tpu.models import layers as jax_layers
 from cmr_agent_tpu.train import train_geo as jax_train_geo
 from cmr_agent_tpu.train import train_iter as jax_train_iter
 from cmr_agent_tpu.train.optim import make_optimizer as jax_optimizer
@@ -35,6 +38,11 @@ from cmr_agent_tpu_torch.models.multi_head import MultiHeadModel
 from cmr_agent_tpu_torch.train import checkpoint, train_geo, train_iter
 from cmr_agent_tpu_torch.train.convert import flax_to_state_dict
 from cmr_agent_tpu_torch.train.optim import Optimizer
+from test_torch_train_agent import _capture_grads
+from test_torch_train_geo import F64Numpy
+from test_torch_train_kernels import (
+    BF16_ULP, assert_scalar_within_jax_bf16_noise,
+    assert_within_jax_bf16_noise)
 
 # tiny width, 256 points, nlabel 3 (27 hypotheses), batch 2
 OVER = dict(num_pt=256, cropped_img_h=64, cropped_img_w=128, nlabel=3,
@@ -130,6 +138,118 @@ def iter_step():
     return dict(cfg=cfg, state=state, ivars=ivars, port=port,
                 metrics=metrics, jmetrics=jmetrics, after=after,
                 want_grads=want_grads)
+
+
+def _jax_iter_grads(jcfg, params, stats, state):
+    """The JAX IterModel train step's gradients (an optax transform that
+    hands them back), metrics and running stats."""
+    cap = _capture_grads()
+    jts = jax_train_iter.IterTrainState(
+        step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+        opt_state=cap.init(params), tx=cap, apply_fn=JaxIterModel(jcfg).apply)
+    jts, metrics = jax_train_iter.make_iter_train_step(jcfg)(jts, state)
+    return (_numpy_tree(jts.opt_state),
+            {k: float(v) for k, v in metrics.items()},
+            _numpy_tree(jts.batch_stats))
+
+
+@pytest.fixture(scope="module")
+def bf16_iter_step(iter_step):
+    """The step with ``compute_dtype="bfloat16"`` in both packages on
+    :func:`iter_step`'s weights and state, the JAX step at f64 compute as
+    the reference (the config's dtype, the BatchNorm and the cost-volume
+    module's f32 casts patched to f64), and the port's step with and
+    without remat."""
+    kw = dict(lr=LR, compute_dtype="bfloat16", **OVER)
+    jcfg, cfg = jax_tiny_config(**kw), tiny_config(**kw)
+    ivars, state = iter_step["ivars"], iter_step["state"]
+    want = _jax_iter_grads(jcfg, ivars["params"], ivars["batch_stats"],
+                           {k: jnp.asarray(v) for k, v in state.items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxConfig, "jnp_dtype", lambda self: jnp.float64)
+        mp.setattr(jax_layers, "jnp", F64Numpy())
+        mp.setattr(jax_cost_volume, "jnp", F64Numpy())
+        with jax.enable_x64(True):
+            f64 = lambda t: jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64)
+                if np.asarray(a).dtype == np.float32 else jnp.asarray(a), t)
+            ref = _jax_iter_grads(jax_tiny_config(lr=LR, **OVER),
+                                  f64(ivars["params"]),
+                                  f64(ivars["batch_stats"]), f64(state))
+
+    def sd(p, st):
+        f32 = lambda t: jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), t)
+        return flax_to_state_dict(cfg, {"params": f32(p),
+                                        "batch_stats": f32(st)}, "itermodel")
+    out = dict(want_metrics=want[1], ref_metrics=ref[1],
+               want_grads=sd(want[0], ivars["batch_stats"]),
+               ref_grads=sd(ref[0], ivars["batch_stats"]),
+               want_stats=sd(ivars["params"], want[2]),
+               ref_stats=sd(ivars["params"], ref[2]))
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, cost_volume_remat=remat)
+        port = _port_state(c, ivars)
+        grads, step = {}, port.optimizer.step
+
+        def record_and_step():
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in port.model.named_parameters()})
+            step()
+        port.optimizer.step = record_and_step
+        dtypes = set()
+        hooks = [m.register_forward_hook(
+            lambda mod, i, o: dtypes.add(o.dtype))
+            for m in port.model.modules() if isinstance(m, torch.nn.Conv2d)]
+        metrics = train_iter.make_iter_train_step(c)(port, _torch(state))
+        for h in hooks:
+            h.remove()
+        out[remat] = dict(port=port, grads=grads, metrics=metrics,
+                          dtypes=dtypes)
+    return out
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("key", train_iter.METRIC_KEYS)
+def test_bf16_iter_step_metrics_match_jax(bf16_iter_step, key, remat):
+    """The loss f32, under ``assert_scalar_within_jax_bf16_noise`` with a
+    floor of one bf16 rounding of the reference; the accuracies are
+    shares of the batch's 2 argmax decisions, and a near tie may fall
+    either way in bf16 (acc_tz did, in the port's step): floor one
+    decision, 1/2."""
+    got = bf16_iter_step[remat]["metrics"][key]
+    assert got.dtype == torch.float32, key
+    ref = bf16_iter_step["ref_metrics"][key]
+    floor = BF16_ULP * abs(ref) if key == "cost_volume_loss" else 0.5
+    assert_scalar_within_jax_bf16_noise(
+        got.item(), bf16_iter_step["want_metrics"][key], ref, floor)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_bf16_iter_step_gradients_and_stats_match_jax(bf16_iter_step, remat,
+                                                      record_property):
+    """Every tower gradient and running statistic under the bf16 gate
+    (``test_torch_train_kernels.py``); parameters, gradients and stats
+    f32, every convolution computed in bf16; with remat the same bits as
+    without."""
+    run = bf16_iter_step[remat]
+    model = run["port"].model
+    assert run["dtypes"] == {torch.bfloat16}
+    grads = {}
+    for name, p in model.named_parameters():
+        g = run["grads"][name]
+        assert p.dtype == g.dtype == torch.float32, name
+        assert torch.equal(g, bf16_iter_step[False]["grads"][name]), name
+        grads[name] = (g.numpy(), bf16_iter_step["want_grads"][name].numpy(),
+                       bf16_iter_step["ref_grads"][name].numpy())
+    record_property("gradients", assert_within_jax_bf16_noise(grads))
+    stats = {name: (buf.numpy(), bf16_iter_step["want_stats"][name].numpy(),
+                    bf16_iter_step["ref_stats"][name].numpy())
+             for name, buf in model.named_buffers()
+             if name.endswith(("running_mean", "running_var"))}
+    assert all(buf.dtype == torch.float32 for buf in model.buffers())
+    record_property("running_stats",
+                    assert_within_jax_bf16_noise(stats, gradients=False))
 
 
 @pytest.mark.parametrize("key", train_iter.METRIC_KEYS)

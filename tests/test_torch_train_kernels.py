@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from cmr_agent_tpu.ops import pallas_kernels as pk
+from cmr_agent_tpu.ops import scatter
 from cmr_agent_tpu_torch.ops import kernels
 
 ATOL = 1e-5
@@ -78,6 +79,152 @@ def test_segment_softmax_backward_matches_jax_vjp_and_autograd():
     kernels.segment_softmax_attend_plain(a2, v2, _t(idx), m).backward(_t(g))
     np.testing.assert_allclose(a.grad.numpy(), a2.grad.numpy(), atol=ATOL)
     np.testing.assert_allclose(v.grad.numpy(), v2.grad.numpy(), atol=ATOL)
+
+
+# One bf16 rounding at a tensor's max: the port's bf16 gradients are the
+# f32 closed form rounded once, so each lies within half of this of the
+# exact gradient.
+BF16_ULP = 2.0 ** -8
+
+# The bf16 train steps' gate (tests/test_torch_train_{geo,agent,iter}.py):
+# per tensor, the port's distance from the JAX package's bf16 step at most
+# BF16_MULTIPLE times JAX-bf16's own distance from an f64 reference of the
+# same step, plus one bf16 rounding of the reference's max. Both packages
+# round the same values to bf16 at the same places, so their distances
+# from the reference are draws of one noise: on the CPU host (the tests'
+# junit properties: micro geo step, 427 gradients; BC + PPO update, 90;
+# tiny IterModel step, 28) the largest ratio of the two was 3.20, 1.79 and
+# 2.01, the 3.20 the only tensor past 2 (the pc overlap head's last bias,
+# whose gradient is a sum over the points that cancels to a few percent of
+# its terms). So at most BF16_SHARE_PAST of the tensors may pass the
+# multiple, none BF16_CAP times JAX's distance: a wrong term moves a
+# tensor by far more than its bf16 noise (and a step left in f32 fails the
+# check that the port's own noise is of JAX's size).
+BF16_MULTIPLE, BF16_SHARE_PAST, BF16_CAP = 2.0, 0.1, 8.0
+
+
+def assert_within_jax_bf16_noise(tensors, gradients: bool = True):
+    """``tensors``: name -> (port, JAX bf16, f64 reference) arrays of one
+    tensor (a gradient, a running statistic). Asserts the gate above and,
+    for ``gradients``, that the port's step really ran in bf16: over the
+    tensors where JAX's bf16 noise clears the floor, the median of the
+    port's distance from the reference over JAX's is at least 1/4 (an f32
+    step sits ~1e-4). A running statistic moves by a tenth of a batch
+    statistic taken in f32, so its bf16 noise stays under the floor.
+    Returns the gate's figures (the largest ratio of the two distances,
+    the count past the multiple), which the tests record as junit
+    properties."""
+    past, own, ratios = [], [], []
+    for name, (got, jx, ref) in tensors.items():
+        got, jx, ref = (np.asarray(a, np.float64) for a in (got, jx, ref))
+        assert got.shape == ref.shape, name
+        floor = BF16_ULP * np.abs(ref).max()
+        d_pj, d_jr = np.abs(got - jx).max(), np.abs(jx - ref).max()
+        assert d_pj <= BF16_CAP * d_jr + floor, (name, d_pj, d_jr)
+        ratios.append(d_pj / max(d_jr, floor, 1e-30))
+        if d_pj > BF16_MULTIPLE * d_jr + floor:
+            past.append(name)
+        if d_jr > floor:
+            own.append(np.abs(got - ref).max() / d_jr)
+    assert len(past) <= BF16_SHARE_PAST * len(tensors), past
+    if gradients:
+        assert own and np.median(own) >= 0.25, own
+    return {"tensors": len(tensors), "past_multiple": len(past),
+            "max_ratio": float(max(ratios)), "median_port_vs_jax_noise":
+            float(np.median(own)) if own else None}
+
+
+def assert_scalar_within_jax_bf16_noise(got, jx, ref, floor):
+    """One loss term or metric: ``|port - JAX bf16| <= BF16_MULTIPLE
+    |JAX bf16 - f64| + floor``."""
+    assert abs(got - jx) <= BF16_MULTIPLE * abs(jx - ref) + floor, \
+        (got, jx, ref)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_segment_softmax_backward_bf16_matches_jax_vjp(seed,
+                                                     record_property):
+    """bf16 leaves through ``SegmentSoftmaxAttendFn`` against ``jax.vjp``
+    of ``segment_softmax_attend_fused(interpret=True)`` on the same leaves,
+    both against an f64 reference (``jax.vjp`` of the JAX package's XLA
+    segment softmax on the leaves widened to f64).
+
+    The port widens the operands and rounds each gradient once to bf16, so
+    it lies within half a bf16 rounding of the reference (asserted at one;
+    0.20-0.38% of the max here). JAX's ``_bwd`` subtracts the max and
+    exponentiates in bf16 and hands back f32 cotangents: 0.47-1.02% of the
+    max off the reference, ``out`` 0.81-1.02% (its forward exponentiates
+    in bf16 too; the port's is within 4e-8). The tolerance follows: per
+    tensor, the port's distance from JAX at most JAX's own distance from
+    the reference plus one bf16 rounding of the max (the triangle
+    inequality, so no share may fall past it); the ratio of the two
+    distances was 0.89-1.24. Each test records its distances as junit
+    properties."""
+    attn, values, idx, m = _segment_inputs(seed, n=1024, m=64)
+    g = np.random.default_rng(seed + 1).normal(size=(2, m, 16)).astype(
+        np.float32)
+    ab = jnp.asarray(attn, jnp.bfloat16)
+    vb = jnp.asarray(values, jnp.bfloat16)
+    out_j, vjp = jax.vjp(lambda a, v: pk.segment_softmax_attend_fused(
+        a, v, jnp.asarray(idx), m, 128, True), ab, vb)
+    da_j, dv_j = vjp(jnp.asarray(g))
+    # JAX hands f32 cotangents upstream of bf16 leaves
+    assert da_j.dtype == dv_j.dtype == jnp.float32
+    leaves = [np.asarray(x.astype(jnp.float32), np.float64) for x in (ab, vb)]
+    with jax.enable_x64(True):
+        out64, vjp64 = jax.vjp(
+            lambda a, v: scatter.batched_segment_softmax_attend(
+                a, v, jnp.asarray(idx), m),
+            *(jnp.asarray(x) for x in leaves))
+        da64, dv64 = vjp64(jnp.asarray(g, jnp.float64))
+
+    a = _t(leaves[0]).to(torch.bfloat16).requires_grad_()
+    v = _t(leaves[1]).to(torch.bfloat16).requires_grad_()
+    out = kernels.SegmentSoftmaxAttendFn.apply(a, v, _t(idx), m)
+    out.backward(_t(g))
+    assert out.dtype == torch.float32
+    assert a.grad.dtype == v.grad.dtype == torch.bfloat16
+    valid = (idx >= 0) & (idx < m)
+    assert np.all(a.grad.float().numpy()[~valid] == 0.0)
+    assert np.all(v.grad.float().numpy()[~valid] == 0.0)
+    for name, got, jx, ref in (
+            ("out", out.detach().numpy(), out_j, out64),
+            ("dattn", a.grad.float().numpy()[valid], np.asarray(da_j)[valid],
+             np.asarray(da64)[valid]),
+            ("dvalues", v.grad.float().numpy()[valid],
+             np.asarray(dv_j)[valid], np.asarray(dv64)[valid])):
+        jx, ref = np.asarray(jx, np.float64), np.asarray(ref)
+        scale = np.abs(ref).max()
+        ulp = BF16_ULP * scale
+        jax_err = np.abs(jx - ref).max()
+        record_property(name, {
+            "port_vs_jax": float(np.abs(got - jx).max() / scale),
+            "jax_vs_f64": float(jax_err / scale),
+            "port_vs_f64": float(np.abs(got - ref).max() / scale)})
+        assert np.abs(got - ref).max() <= ulp, name
+        assert np.abs(got - jx).max() <= jax_err + ulp, name
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16, torch.float16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_segment_softmax_backward_refuses_other_dtypes_on_the_card(dtypes):
+    """On CUDA tensors (fake ones: this host has no card) the backward
+    wrapper takes attn and values both f32 or both bf16 and raises on any
+    other pair before a launch, rather than widening them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    b, n, m, f = 2, 40, 7, 6
+    name = "segment_softmax_attend_backward"
+    before = kernels.launch_counts()[name]
+    with FakeTensorMode():
+        def t(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="cuda")
+        with pytest.raises(TypeError, match="dtype"):
+            kernels.segment_softmax_attend_backward(
+                t(b, n, f, dtype=dtypes[0]), t(b, n, f, dtype=dtypes[1]),
+                t(b, n, dtype=torch.int32), t(b, m, f), t(b, m, f), t(b, f),
+                t(b, m, f), m)
+    assert kernels.launch_counts()[name] == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
