@@ -15,6 +15,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase inputs                 # KITTI / nuScenes
     python3 chip_smoke.py --phase modules                # the last modules
     python3 chip_smoke.py --phase train_bf16             # bf16 training
+    python3 chip_smoke.py --phase convergence            # the demo
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -274,6 +275,13 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     and without it in phase 20's worker process (``[train_iter_bf16]``),
     and the bf16 IterModel step's logits against its plain twin under
     phase 4's bf16 gate (``[train_iter_bf16_vs_plain]``).
+
+24. the convergence demo (also alone with ``--phase convergence``):
+    ``examples/convergence_demo.py --full --scene structured --batch-size
+    8``, stage 1 (40 geo steps, ``--save-geo``) and stage 3 from
+    ``runs_r4/geo_45`` (20 agent steps, ``--save-agent``), then both
+    snapshots through ``cli.test_agent`` on one batch (see
+    :func:`run_convergence`).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -4076,8 +4084,9 @@ def run_cli(tag: str, main, argv):
 @contextlib.contextmanager
 def recording(torch, kernels, module, *names, after=None):
     """Wrap the step factories ``names`` of a CLI module: each call of a
-    function they make runs between two synchronisations with the launch
-    counts set to 0 just before it. Yields ``{name: [(seconds, counts),
+    function they make runs between two synchronisations, and its counts
+    are the launch counts' growth across it (nothing is reset, so a whole
+    run's counts stay readable too). Yields ``{name: [(seconds, counts),
     ...]}``; the last call's function and arguments are kept under
     ``(name, "last")``, each call's start and end (``time.perf_counter``)
     under ``(name, "spans")``. ``after(name, n)`` runs after the n-th
@@ -4091,12 +4100,14 @@ def recording(torch, kernels, module, *names, after=None):
 
             def recorded(*args):
                 torch.cuda.synchronize()
-                kernels.reset_launch_counts()
+                before = kernels.launch_counts()
                 t0 = time.perf_counter()
                 out = fn(*args)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                calls[name].append((t1 - t0, kernels.launch_counts()))
+                calls[name].append((t1 - t0, {
+                    k: v - before[k]
+                    for k, v in kernels.launch_counts().items()}))
                 calls.setdefault((name, "spans"), []).append((t0, t1))
                 calls[(name, "last")] = (fn, args)
                 if after is not None:
@@ -5911,6 +5922,238 @@ def run_train_bf16(torch, kernels, serve, kitti_config, dev) -> dict:
     return out
 
 
+# phase 24: the convergence demo's stage 1 (geo) and stage 3 (agent, from
+# the committed geo_45 through its export) cut to 40 and 20 steps
+CONVERGENCE_ARGV = ("--full", "--scene", "structured", "--batch-size", str(B))
+CONVERGENCE_GEO_ARGV = ("--geo-steps", "40", "--geo-refresh-every", "20",
+                        "--pool-size", "8", "--val-size", "8",
+                        "--agent-steps", "0")
+CONVERGENCE_AGENT_ARGV = ("--load-geo", "runs_r4/geo_45", "--agent-steps",
+                          "20", "--refresh-every", "10", "--pool-size", "8",
+                          "--val-size", "8", "--val-every", "10",
+                          "--pose-aware", "--aux-head", "--bearing-init",
+                          "--expert-beta-frac", "0.33",
+                          "--expert-beta-floor", "0.2", "--select-median")
+CONVERGENCE_STEPS = ("make_geo_train_step", "make_rollout_fn",
+                     "make_ppo_update_step", "make_val_episode_fn")
+# the rollout's and the validation episode's kernels (the geo forward's are
+# counted with the geo step's and the run's)
+EPISODE_KERNELS = {"make_rollout_fn": ("segment_mean_count_image",),
+                   "make_val_episode_fn": (
+                       "segment_mean_count_image_project",)}
+# the agent stage's kernels: the geo forward's and the two rasters
+AGENT_STAGE_KERNELS = ("segment_softmax_attend", "gather_rows", "knn",
+                       "segment_mean_count_image",
+                       "segment_mean_count_image_project")
+EXPERT_FLOOR_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def keeping(module, *names):
+    """Wrap the functions ``names`` of ``module`` so that each call's
+    arguments and result are kept: yields ``{name: [(args, kwargs,
+    result), ...]}``."""
+    kept = {n: [] for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def kept_call(*a, **kw):
+            out = fn(*a, **kw)
+            kept[name].append((a, kw, out))
+            return out
+        return kept_call
+
+    try:
+        for n, fn in saved.items():
+            setattr(module, n, wrap(n, fn))
+        yield kept
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def same_bits(torch, got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype
+        and torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+
+def run_demo_stage(torch, kernels, demo, label: str, argv) -> dict:
+    """One run of the convergence demo's ``main(argv)``, its stdout relayed
+    as ``[convergence_<label>]``: the launch counts set to 0 just before it
+    and read just after, each step factory's calls with their launches, the
+    states and pools the run made, peak memory and wall seconds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with keeping(demo, "create_geo_state", "create_agent_state",
+                 "make_pool") as kept, \
+            recording(torch, kernels, demo, *CONVERGENCE_STEPS) as calls:
+        result, lines = run_cli(f"convergence_{label}", demo.main, argv)
+    torch.cuda.synchronize()
+    return dict(result=result, lines=lines, calls=calls, kept=kept,
+                seconds=time.perf_counter() - t0,
+                launches=kernels.launch_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def median_s(calls) -> float:
+    """The median seconds of recorded ``(seconds, counts)`` calls."""
+    return statistics.median(t for t, _ in calls)
+
+
+def per_call(calls, name: str) -> dict:
+    """The median launches of each kernel over the calls of ``name``."""
+    runs = [c for _, c in calls[name]]
+    return {k: statistics.median(c[k] for c in runs) for k in runs[0]
+            if any(c[k] for c in runs)}
+
+
+def run_convergence(torch, kernels, dev) -> None:
+    """Phase 24 (``--phase convergence``): the convergence demo
+    (``cmr_agent_tpu_torch/examples/convergence_demo.py``) at ``--full``
+    (KITTI width, bf16), B = 8, structured scenes, through its ``main``:
+    stage 1 (40 geo steps, pools refreshed at 20, 8 held-out scenes,
+    ``--save-geo``), then stage 3 from the committed ``runs_r4/geo_45``
+    through its export (20 agent steps, DAgger, the flagship observation,
+    median selection, ``--save-agent``); then both snapshots through
+    ``cli.test_agent`` on one batch of 8. Gates: the demo's own asserts,
+    the snapshots' state_dicts bit-equal to the in-memory modules, the
+    evaluation run to its end, the expert floor within 1e-4 of the same
+    computation on the CPU over the same held-out pool, every kernel of
+    each path launched. Prints ``[convergence_geo]`` / ``[convergence_
+    agent]`` (steps/s, stage seconds, peak memory, launches per step,
+    rollout, update and validation episode), ``[convergence_snapshots]``,
+    ``[convergence_test_agent]``, ``[convergence_expert_floor]``."""
+    import gc
+    import os
+    import tempfile
+
+    from cmr_agent_tpu_torch.cli import test_agent
+    from cmr_agent_tpu_torch.examples import convergence_demo as demo
+    from cmr_agent_tpu_torch.train import checkpoint
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convergence_") as tmp:
+        geo_dir, agent_dir = (os.path.join(tmp, n) for n in ("geo", "agent"))
+        base = list(CONVERGENCE_ARGV) + ["--device", str(dev)]
+        argv = {"geo": base + list(CONVERGENCE_GEO_ARGV)
+                + ["--save-geo", geo_dir],
+                "agent": base + list(CONVERGENCE_AGENT_ARGV)
+                + ["--save-agent", agent_dir]}
+        for label in ("geo", "agent"):
+            run = run_demo_stage(torch, kernels, demo, label, argv[label])
+            args = demo.parse_args(argv[label])
+            cfg, _ = demo.build_config(args)
+            calls = run["calls"]
+            if label == "geo":
+                steps = calls["make_geo_train_step"]
+                losses = run["result"]["geo_losses"]
+                assert len(steps) == len(losses) == args.geo_steps, (
+                    len(steps), len(losses))
+                assert all(np.isfinite(losses)), losses
+                assert all(per_call(calls, "make_geo_train_step").get(k)
+                           for k in GEO_STEP_KERNELS), calls
+                path_kernels = GEO_STEP_KERNELS
+                rates = dict(
+                    steps_per_s_median=f"{1 / median_s(steps[1:]):.4f}",
+                    stage_steps_per_s=f"{len(steps) / run['seconds']:.4f}",
+                    loss_first=f"{losses[0]:.4f}",
+                    loss_last=f"{losses[-1]:.4f}",
+                    holdout="|".join(f"{v:.4f}" for v in
+                                     run["result"]["geo_holdout"]))
+                launches = {f"step_{k}": f"{v:g}" for k, v in per_call(
+                    calls, "make_geo_train_step").items()}
+                module = run["kept"]["create_geo_state"][0][2].model
+                snap = checkpoint.restore_state_dict(geo_dir, cfg,
+                                                     "multihead")
+            else:
+                r = run["result"]
+                rollouts = calls["make_rollout_fn"]
+                updates = calls["make_ppo_update_step"]
+                n_up = (args.agent_steps // cfg.num_trajectory) * (
+                    cfg.num_trajectory * B * cfg.action_num
+                    // cfg.ppo_batch_size)
+                assert len(rollouts) == args.agent_steps, len(rollouts)
+                assert len(updates) == n_up, (len(updates), n_up)
+                u_agree, t_agree = r["agreement"]
+                assert t_agree > u_agree, r["agreement"]
+                assert all(np.isfinite(v) for k in ("untrained", "trained",
+                                                    "expert")
+                           for v in r[k]), r
+                for name, names in EPISODE_KERNELS.items():
+                    assert all(per_call(calls, name).get(k) for k in names), (
+                        name, calls[name])
+                path_kernels = AGENT_STAGE_KERNELS
+                val_ms = median_s(calls["make_val_episode_fn"]) * 1e3
+                rates = dict(
+                    stage_steps_per_s=f"{len(rollouts) / run['seconds']:.4f}",
+                    rollout_ms_median=f"{median_s(rollouts[1:]) * 1e3:.2f}",
+                    update_ms_median=f"{median_s(updates[1:]) * 1e3:.2f}",
+                    val_episode_ms_median=f"{val_ms:.2f}",
+                    updates=len(updates),
+                    agreement="|".join(f"{v:.4f}" for v in r["agreement"]),
+                    untrained="|".join(f"{v:.4f}" for v in r["untrained"]),
+                    trained="|".join(f"{v:.4f}" for v in r["trained"]),
+                    expert="|".join(f"{v:.6f}" for v in r["expert"]),
+                    bc="|".join(f"{v:.4f}" for v in r["bc"]))
+                launches = {f"{tag}_{k}": f"{v:g}"
+                            for tag, name in (("rollout", "make_rollout_fn"),
+                                              ("update",
+                                               "make_ppo_update_step"),
+                                              ("val", "make_val_episode_fn"))
+                            for k, v in per_call(calls, name).items()}
+                module = run["kept"]["create_agent_state"][0][2].agent
+                snap = checkpoint.restore_state_dict(agent_dir, cfg, "agent")
+                # the expert floor over the same held-out pool on the CPU
+                val_pool = [out for a, kw, out in run["kept"]["make_pool"]
+                            if kw.get("seed") == demo.VAL_SEED]
+                assert len(val_pool) == 1, len(val_pool)
+                cpu_pool = [{k: v.cpu() for k, v in b.items()}
+                            for b in val_pool[0]]
+                cpu = demo.eval_expert(cfg, cpu_pool)
+                diff = max(abs(a - b) for a, b in zip(r["expert"], cpu))
+                line("convergence_expert_floor",
+                     card="|".join(f"{v:.7f}" for v in r["expert"]),
+                     cpu="|".join(f"{v:.7f}" for v in cpu),
+                     max_abs_diff=f"{diff:.3e}", tol=EXPERT_FLOOR_TOL)
+                assert diff <= EXPERT_FLOOR_TOL, (r["expert"], cpu)
+            assert all(run["launches"][k] > 0 for k in path_kernels), (
+                label, run["launches"])
+            held = same_bits(torch, snap, module.state_dict())
+            line(f"convergence_{label}", batch=B, dtype=cfg.compute_dtype,
+                 stage_s=f"{run['seconds']:.2f}",
+                 peak_gib=f"{run['peak_gib']:.3f}", **rates, **launches,
+                 **{f"run_{k}": v for k, v in run["launches"].items() if v})
+            line("convergence_snapshots", stage=label, same_bits=held,
+                 tensors=len(snap))
+            assert held, label
+            del module, snap
+            run.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        # both snapshots through the evaluation CLI, one batch of 8
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        metrics, lines = run_cli("convergence_test_agent", test_agent.main, [
+            "--dataset", "synthetic", "--synthetic-scene", "structured",
+            "--synthetic-length", str(B), "--eval-batch-size", str(B),
+            "--max-batches", "1", "--num-workers", "0", "--dtype",
+            "bfloat16", "--geo-ckpt", geo_dir, "--agent-ckpt", agent_dir,
+            "--pose-aware", "--aux-head", "--bearing-init", "--device",
+            str(dev)])
+        assert f"loaded geo checkpoint from {geo_dir}" in lines, lines
+        assert f"loaded agent checkpoint from {agent_dir}" in lines, lines
+        assert metrics["num_samples"] == B, metrics
+        assert np.isfinite(metrics["rte_median_all"]), metrics
+        line("convergence_test_agent",
+             seconds=f"{time.perf_counter() - t0:.2f}",
+             num_samples=metrics["num_samples"],
+             registration_recall=metrics["registration_recall"],
+             rte_median=f"{metrics['rte_median_all']:.4f}",
+             rre_median=f"{metrics['rre_median_all']:.4f}",
+             **{k: v for k, v in kernels.launch_counts().items() if v})
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -5923,7 +6166,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     composed artifact at ``hypotheses`` candidates), "train" phase 20 (the
     training entry points), "inputs" phase 21 (the reference's inputs),
     "modules" phase 22 (the last modules), "train_bf16" phase 23 (bf16
-    training). Returns the number of repeats that failed their gate."""
+    training), "convergence" phase 24 (the convergence demo). Returns the
+    number of repeats that failed their gate."""
     failed = 0
     if phase in ("train", "train_bf16"):
         # once: after a repeat this process's allocator pins segments the
@@ -5961,6 +6205,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_modules(torch, kernels, serve, kitti_config, dev)
             elif phase == "train_bf16":
                 run_train_bf16(torch, kernels, serve, kitti_config, dev)
+            elif phase == "convergence":
+                run_convergence(torch, kernels, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -5982,7 +6228,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval|export|train|inputs|modules|train_bf16 [--repeat N]
+    factored|eval|export|train|inputs|modules|train_bf16|convergence
+    [--repeat N]
     [--hypotheses K]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate); ``--hypotheses`` is the composed
@@ -5993,7 +6240,8 @@ def main(argv=None) -> int:
                     choices=("all", "geo_train", "segment_sums", "chains",
                              "knn_raster", "softmax_image", "compact_pack",
                              "factored", "eval", "export", "train",
-                             "inputs", "modules", "train_bf16"),
+                             "inputs", "modules", "train_bf16",
+                             "convergence"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--hypotheses", type=int, default=13)
@@ -6163,6 +6411,11 @@ def main(argv=None) -> int:
     bf16_train = run_train_bf16(torch, kernels, serve, kitti_config, dev)
     rows["segment_softmax_attend_backward_bf16"] = bf16_train["row"]
     line("seventeenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_convergence(torch, kernels, dev)
+    line("eighteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step (the VJP's
     # bf16 row one bf16 step of cli.train_geo), the

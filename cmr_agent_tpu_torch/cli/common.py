@@ -27,10 +27,11 @@ Differences from the JAX package's CLIs:
   rounds its gradients once to bf16. :func:`tf32_precision` stays on
   then and covers only the matmuls and convolutions left in f32 (the
   coordinate transforms); the bf16 layers and the kernels ignore it;
-* checkpoints are the weight exports of :mod:`..train.checkpoint`, found
-  from the Orbax paths the JAX package's commands name, or the
-  reference's ``.pth`` files (:func:`..train.convert.torch_to_state_dict`),
-  wherever the JAX package's CLIs take one.
+* checkpoints are the port's own train checkpoints and stepless
+  snapshots, the weight exports of :mod:`..train.checkpoint`, found from
+  the Orbax paths the JAX package's commands name, or the reference's
+  ``.pth`` files (:func:`..train.convert.torch_to_state_dict`), wherever
+  the JAX package's CLIs take one.
 
 ``--dataset kitti`` and ``--dataset nuscenes`` read the reference's dumps
 under ``--data-root`` (:mod:`..data.kitti`, :mod:`..data.nuscenes`);
@@ -328,22 +329,17 @@ def to_device(batch, device) -> dict:
 
 def load_model(cfg: Config, module: torch.nn.Module, ckpt: str, which: str,
                what: str, device) -> torch.nn.Module:
-    """``module`` with the weights of checkpoint ``ckpt`` (a reference
-    ``.pth``, a weight export or the Orbax tree it came from), or, with no
-    ``ckpt``, random weights from seed 0 after a WARNING, as the JAX
-    package's CLIs do; on ``device``, in eval mode."""
+    """``module`` with the weights of checkpoint ``ckpt`` (any layout of
+    :mod:`..train.checkpoint`: a port train checkpoint or stepless
+    snapshot, a weight export or the Orbax tree it came from, a reference
+    ``.pth``), or, with no ``ckpt``, random weights from seed 0 after a
+    WARNING, as the JAX package's CLIs do; on ``device``, in eval mode."""
     from ..serve import init_random_
-    from ..train.checkpoint import (load_module_variables,
-                                    restore_model_variables)
-    from ..train.convert import torch_to_state_dict
+    from ..train.checkpoint import restore_state_dict
 
-    if ckpt.endswith(".pth"):
-        module.load_state_dict(torch_to_state_dict(cfg, ckpt, which),
+    if ckpt:
+        module.load_state_dict(restore_state_dict(ckpt, cfg, which),
                                strict=True)
-        print(f"loaded {what} checkpoint from {ckpt}")
-    elif ckpt:
-        load_module_variables(module, cfg, restore_model_variables(ckpt),
-                              which)
         print(f"loaded {what} checkpoint from {ckpt}")
     else:
         init_random_(module, torch.Generator().manual_seed(0))

@@ -53,8 +53,9 @@ def parser() -> argparse.ArgumentParser:
     add_common_args(p)
     p.add_argument("--geo-ckpt", default="")
     p.add_argument("--agent-ckpt", default="",
-                   help="agent checkpoint (a weight export or the Orbax "
-                        "tree it came from)")
+                   help="agent checkpoint (a port train checkpoint or "
+                        "snapshot, a weight export or the Orbax tree it "
+                        "came from)")
     p.add_argument("--iter-ckpt", default="",
                    help="coarse-to-fine: an IterModel checkpoint runs "
                         "--iter-iters cost-volume iterations first, the "

@@ -38,8 +38,9 @@ def main(argv=None):
     add_common_args(p)
     p.add_argument("--geo-ckpt", default="")
     p.add_argument("--iter-ckpt", default="",
-                   help="IterModel checkpoint (a weight export or the Orbax "
-                        "tree it came from)")
+                   help="IterModel checkpoint (a port train checkpoint or "
+                        "snapshot, a weight export or the Orbax tree it "
+                        "came from)")
     p.add_argument("--iters", type=int, default=1,
                    help="cost-volume refinement iterations")
     p.add_argument("--unmasked-warp", action="store_true",

@@ -1,8 +1,9 @@
 """Train the refinement agent by imitation + PPO (counterpart of the JAX
 package's ``cli/train_agent.py``; reference Train_Agent.py).
 
-Loads a frozen geo model (``--geo-ckpt``: a weight export or the Orbax
-tree it came from; random weights when empty), rolls out trajectories with
+Loads a frozen geo model (``--geo-ckpt``: a port train checkpoint or
+snapshot, a weight export or the Orbax tree it came from; random
+weights when empty), rolls out trajectories with
 expert labels, and optimises BC + PPO on full minibatches of the flushed
 buffer.
 
@@ -65,8 +66,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(p)
     p.add_argument("--geo-ckpt", default="",
-                   help="frozen geo checkpoint (a weight export or the Orbax "
-                        "tree it came from); random weights when empty")
+                   help="frozen geo checkpoint (a port train checkpoint or "
+                        "snapshot, a weight export or the Orbax tree it "
+                        "came from); random weights when empty")
     p.add_argument("--resume", default="",
                    help="agent train checkpoint dir to resume from")
     p.add_argument("--reference-reward", action="store_true",

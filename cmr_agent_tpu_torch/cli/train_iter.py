@@ -40,8 +40,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(p)
     p.add_argument("--geo-ckpt", default="",
-                   help="frozen geo checkpoint (a weight export or the Orbax "
-                        "tree it came from); random weights when empty")
+                   help="frozen geo checkpoint (a port train checkpoint or "
+                        "snapshot, a weight export or the Orbax tree it "
+                        "came from); random weights when empty")
     p.add_argument("--val-interval", type=int, default=0,
                    help="steps between validations (0 = config default)")
     p.add_argument("--resume", default="",

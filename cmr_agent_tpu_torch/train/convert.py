@@ -17,6 +17,8 @@ and inverts their layout transforms:
 
 :func:`flax_to_state_dict` is total: it raises on any port key left
 unassigned, any JAX leaf left unconsumed, or any shape mismatch.
+:func:`state_dict_to_flax` is its inverse, as total, for the port's own
+checkpoints laid out as the JAX package's variables.
 
 The reference's checkpoints (``geo_feat.pth``, ``agent.pth``, an IterModel
 ``.pth``): the port's keys are the reference's names, so
@@ -405,6 +407,45 @@ def flax_to_state_dict(cfg: Config, variables, which="multihead"
     into a ``state_dict`` of the port's module."""
     entries, module = _model(cfg, which)
     return entries_to_state_dict(entries, module.state_dict(), variables)
+
+
+def _apply_transform(tag: str, w: np.ndarray) -> np.ndarray:
+    """The JAX package's layout of a port tensor (inverse of
+    :func:`_invert_transform`)."""
+    if tag == T_DENSE:
+        return np.ascontiguousarray(w.T)
+    if tag == T_CONV2D:
+        return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+    return np.asarray(w)
+
+
+def state_dict_to_flax(cfg: Config, state_dict, which="multihead"
+                       ) -> Dict[str, dict]:
+    """The inverse of :func:`flax_to_state_dict`: a port ``state_dict`` of
+    ``which`` as the JAX package's ``{"params", "batch_stats"}`` tree,
+    numpy leaves in the tensors' dtype. Total: a key of the module missing
+    from ``state_dict`` raises, and so does a key it does not know."""
+    entries, module = _model(cfg, which)
+    known = {tk for tk, _, _, _ in entries}
+    surplus = sorted(set(state_dict) - known)
+    if surplus:
+        raise KeyError(f"unknown port keys: {surplus[:8]} "
+                       f"(+{max(0, len(surplus) - 8)} more)")
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    target = module.state_dict()
+    for tk, coll, fp, tag in entries:
+        if tk not in state_dict:
+            raise KeyError(f"port key missing: {tk}")
+        w = state_dict[tk].detach().cpu()
+        if tuple(w.shape) != tuple(target[tk].shape):
+            raise ValueError(f"shape mismatch {tk}: {tuple(w.shape)} vs "
+                             f"{tuple(target[tk].shape)}")
+        node = out[coll]
+        *parents, leaf = fp.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _apply_transform(tag, w.numpy())
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -60,7 +60,7 @@ def episode_state(geo_out: Dict, batch: Dict) -> Dict:
     return state
 
 
-def _poses(cfg: Config, state):
+def episode_poses(cfg: Config, state):
     """Episode start (the identity, or the bearing yaw with
     ``cfg.bearing_init``) and the disentangled target."""
     pose_src, pose_tgt = init_poses(state)
@@ -81,7 +81,7 @@ def make_rollout_fn(cfg: Config, reward_apply_pose: bool = True):
                 expert_beta: Optional[float] = None):
         agent = agent_state.agent.eval()
         state = episode_state(geo_out, batch)
-        pose_src, pose_tgt = _poses(cfg, state)
+        pose_src, pose_tgt = episode_poses(cfg, state)
         with torch.no_grad():
             final, _, traj = run_episode(
                 agent, state, pose_src, cfg, cfg.episode_raster_topk(),
@@ -158,7 +158,7 @@ def make_val_episode_fn(cfg: Config):
     def val_episode(agent_state: AgentTrainState, geo_out, batch):
         agent = agent_state.agent.eval()
         state = episode_state(geo_out, batch)
-        pose_src, pose_tgt = _poses(cfg, state)
+        pose_src, pose_tgt = episode_poses(cfg, state)
         with torch.no_grad():
             final, _, _ = run_episode(agent, state, pose_src, cfg,
                                       cfg.episode_raster_topk())
