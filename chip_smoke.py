@@ -16,6 +16,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase modules                # the last modules
     python3 chip_smoke.py --phase train_bf16             # bf16 training
     python3 chip_smoke.py --phase convergence            # the demo
+    python3 chip_smoke.py --phase multichip              # dp x sp training
 
 Phases, one line each (a failure in any phase raises and exits non-zero):
 
@@ -282,6 +283,16 @@ Phases, one line each (a failure in any phase raises and exits non-zero):
     ``runs_r4/geo_45`` (20 agent steps, ``--save-agent``), then both
     snapshots through ``cli.test_agent`` on one batch (see
     :func:`run_convergence`).
+
+25. training under a dp x sp mesh (also alone with ``--phase
+    multichip``): ``tools/multichip_dryrun.py``'s ``entry`` (the KITTI geo
+    forward with its loss, batch 1) and ``dryrun_multichip(4)`` at KITTI
+    width and depth, f32, TF32 off, global batch 4: four gloo ranks on
+    this card run the geo step on dp x sp = (2, 2) and (1, 4) with the
+    ``LinearAttention`` modules on their sp route, then on (2, 2) the
+    sharded geo forward, a dp rollout, a PPO update, the IterModel step
+    under ``cost_volume_remat`` and a 6-DoF rollout, each against one
+    process (see :func:`run_multichip`).
 
 The last lines are the kernels' JSON summary, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Needs a CUDA card: without one it exits
@@ -6154,6 +6165,109 @@ def run_convergence(torch, kernels, dev) -> None:
              **{k: v for k, v in kernels.launch_counts().items() if v})
 
 
+MULTICHIP_RANKS = 4               # the global batch: 4 rows, 2 a dp rank
+MULTICHIP_DIR = "build/multichip"
+# each rank's launches per leg: its rows take one process's calls
+GEO_STEP_LAUNCHES = {"segment_softmax_attend": 4,
+                     "segment_softmax_attend_backward": 4,
+                     "gather_rows": 19, "knn": 1, "segment_sum": 13}
+MULTICHIP_LAUNCHES = {
+    "geo_step_dp2_sp2": GEO_STEP_LAUNCHES,
+    "geo_step_dp1_sp4": GEO_STEP_LAUNCHES,
+    "geo_forward": {"segment_softmax_attend": 4, "gather_rows": 19,
+                    "knn": 1},
+    "rollout": {"segment_mean_count_image": 10},
+    "ppo_update": {},
+    "iter_step": {"segment_sum_shared": 2},      # the warp, recomputed
+    "rollout_6dof": {"segment_mean_count_image": 10},
+}
+
+
+def run_multichip(torch, kernels, dev) -> dict:
+    """Phase 25 (``--phase multichip``): ``tools/multichip_dryrun.py``,
+    the counterpart of the JAX package's ``__graft_entry__.py``. Its
+    ``entry`` (the KITTI geo forward with its loss, batch 1: finite, the
+    batch's shapes, ``[multichip_entry]``), then ``dryrun_multichip(4)``
+    at KITTI width and depth, f32 with TF32 off, global batch 4, the
+    IterModel step under ``cost_volume_remat``: four gloo ranks sharing
+    this card (the machine has one) run the geo step on dp x sp = (2, 2)
+    and (1, 4) with the sp route of ``LinearAttention`` trained, then on
+    (2, 2) the sharded geo forward, a dp rollout, one PPO update, the
+    IterModel step and a 6-DoF rollout. Gates (asserted in the ranks):
+    the losses against one process's within rtol 5e-4, the update norms
+    within 5e-3, the sp-routed modules' gradients summed over sp within
+    1e-3 of the largest one-process entry once the ReLUs that took the
+    other side of zero are accounted for (``relu_flip_correction``; the
+    raw error, the flips and the same account of a last-bit nudge in one
+    process printed beside it), the rollouts' actions equal to one
+    process's, every rank issuing the same all-reduces; here: each
+    rank's launches per leg equal to :data:`MULTICHIP_LAUNCHES`. Prints
+    ``[multichip_geo]``, ``[multichip_agent]``, ``[multichip_iter]``,
+    ``[multichip_six_dof]``, ``[multichip_nudge]``, ``[multichip_leg]``
+    (each rank's seconds, seconds inside all-reduces with the wait for the
+    other ranks, all-reduce count, launches and peak per leg) and
+    ``[multichip_rank]`` (each rank's peak)."""
+    import gc
+    from cmr_agent_tpu_torch.tools import multichip_dryrun as md
+    gc.collect()
+    torch.cuda.empty_cache()        # the ranks share this card
+    t0 = time.perf_counter()
+    fn, args = md.entry("cuda")
+    (loss, pc_feat, img_feat), seconds = timed(torch, lambda: fn(*args))
+    batch = args[2]
+    line("multichip_entry", seconds=f"{seconds:.3f}",
+         loss=f"{loss.item():.6f}", pc_geo_feat=tuple(pc_feat.shape),
+         img_geo_feat=tuple(img_feat.shape))
+    assert torch.isfinite(loss) and pc_feat.shape[:2] == batch["pc"].shape[:2]
+    assert bool(torch.isfinite(pc_feat).all() and torch.isfinite(
+        img_feat).all())
+    del fn, args, batch, loss, pc_feat, img_feat
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = md.dryrun_multichip(MULTICHIP_RANKS, "cuda", "kitti",
+                              timeout_s=600, out_dir=MULTICHIP_DIR)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for r in res["layouts"]:
+        line("multichip_geo", dp=r["dp"], sp=r["sp"],
+             loss=f"{r['loss']:.7f}", loss_ref=f"{r['loss_ref']:.7f}",
+             loss_rel=f"{rel(r['loss'], r['loss_ref']):.2e}",
+             update_norm=f"{r['norm']:.6e}",
+             update_norm_rel=f"{rel(r['norm'], r['norm_ref']):.2e}",
+             la_grad_rel_err=f"{r['la_grad_rel_err']:.3e}",
+             la_grad_rel_err_raw=f"{r['la_grad_rel_err_raw']:.3e}",
+             relu_flips=r["relu_flips"], worst=r["worst"],
+             worst_raw=r["worst_raw"])
+    nu = res["nudge"]
+    line("multichip_nudge", la_grad_rel_err=f"{nu['la_grad_rel_err']:.3e}",
+         la_grad_rel_err_raw=f"{nu['la_grad_rel_err_raw']:.3e}",
+         relu_flips=nu["relu_flips"], worst=nu["worst"],
+         worst_raw=nu["worst_raw"])
+    a, it, six = res["agent"], res["iter"], res["six_dof"]
+    line("multichip_agent", rows=a["rows"], loss=f"{a['loss']:.7f}",
+         loss_rel=f"{rel(a['loss'], a['loss_ref']):.2e}",
+         actions_equal=a["actions_equal"])
+    line("multichip_iter", remat=True, loss=f"{it['loss']:.7f}",
+         loss_rel=f"{rel(it['loss'], it['loss_ref']):.2e}")
+    line("multichip_six_dof", actions_equal=six["actions_equal"],
+         action_shape=tuple(six["action_shape"]))
+    for rank in res["ranks"]:
+        for leg, rec in rank["legs"].items():
+            line("multichip_leg", rank=rank["rank"], leg=leg,
+                 seconds=f"{rec['seconds']:.3f}",
+                 allreduce_s=f"{rec['allreduce_seconds']:.3f}",
+                 allreduces=len(rec["allreduces"]),
+                 peak_gib=f"{rec['peak_gib']:.3f}",
+                 **rec["launches"])
+            assert rec["launches"] == MULTICHIP_LAUNCHES[leg], (
+                rank["rank"], leg, rec["launches"])
+        line("multichip_rank", rank=rank["rank"],
+             peak_gib=f"{rank['peak_gib']:.3f}")
+    assert set(res["ranks"][0]["legs"]) == set(MULTICHIP_LAUNCHES)
+    line("multichip", ranks=MULTICHIP_RANKS, batch=res["batch"],
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    return res
+
+
 def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
               repeat: int, hypotheses: int = 13) -> int:
     """One phase alone, ``repeat`` times: "geo_train" phase 6's gate (the
@@ -6166,8 +6280,9 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
     composed artifact at ``hypotheses`` candidates), "train" phase 20 (the
     training entry points), "inputs" phase 21 (the reference's inputs),
     "modules" phase 22 (the last modules), "train_bf16" phase 23 (bf16
-    training), "convergence" phase 24 (the convergence demo). Returns the
-    number of repeats that failed their gate."""
+    training), "convergence" phase 24 (the convergence demo), "multichip"
+    phase 25 (training under a dp x sp mesh). Returns the number of
+    repeats that failed their gate."""
     failed = 0
     if phase in ("train", "train_bf16"):
         # once: after a repeat this process's allocator pins segments the
@@ -6207,6 +6322,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
                 run_train_bf16(torch, kernels, serve, kitti_config, dev)
             elif phase == "convergence":
                 run_convergence(torch, kernels, dev)
+            elif phase == "multichip":
+                run_multichip(torch, kernels, dev)
             elif phase == "segment_sums":
                 _, randn, randint = rand_factory(torch, 4321, dev)
                 check_segment_sum(torch, kernels, dev, randn, randint,
@@ -6228,8 +6345,8 @@ def run_phase(torch, kernels, serve, kitti_config, dev, phase: str,
 def main(argv=None) -> int:
     """Every phase, with no arguments. ``--phase
     geo_train|segment_sums|chains|knn_raster|softmax_image|compact_pack|
-    factored|eval|export|train|inputs|modules|train_bf16|convergence
-    [--repeat N]
+    factored|eval|export|train|inputs|modules|train_bf16|convergence|
+    multichip [--repeat N]
     [--hypotheses K]``
     builds the kernels and runs that one phase N times instead (exit code 1
     if any repeat failed its gate); ``--hypotheses`` is the composed
@@ -6241,7 +6358,7 @@ def main(argv=None) -> int:
                              "knn_raster", "softmax_image", "compact_pack",
                              "factored", "eval", "export", "train",
                              "inputs", "modules", "train_bf16",
-                             "convergence"),
+                             "convergence", "multichip"),
                     default="all")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--hypotheses", type=int, default=13)
@@ -6416,6 +6533,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_convergence(torch, kernels, dev)
     line("eighteenth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_multichip(torch, kernels, dev)
+    line("twentieth_slice_phase", seconds=f"{time.perf_counter() - t0:.1f}")
     # each kernel's launches on the path that runs it: the serving episode
     # (f32; kernel 1's bf16 row the bf16 one), one geo train step (the VJP's
     # bf16 row one bf16 step of cli.train_geo), the

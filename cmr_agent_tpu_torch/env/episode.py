@@ -11,6 +11,7 @@ import torch
 
 from ..config import Config
 from ..models.agent import action_from_logits, action_logprob_and_entropy
+from ..parallel.mesh import rand_shard
 from .environment import (apply_action, compact_observation_state,
                           expert_action, observation_from_pose, step_reward)
 
@@ -84,6 +85,9 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
     ``with_expert``) takes the expert's action instead with that
     probability per sample and step, drawn from ``generator`` after the
     step's actions. The trajectory records the action actually taken.
+    Under a dp mesh (:func:`..parallel.mesh.use_mesh`) ``state`` holds
+    this rank's rows and every draw is made at the global batch's shape,
+    so the ranks take the actions one process takes.
 
     Returns ``(final_pose [B,4,4], [(r_logits, t_logits)] per step,
     trajectory or None)``; the trajectory's tensors are stacked over the
@@ -133,8 +137,8 @@ def run_episode(agent, state: dict, pose_init: torch.Tensor, cfg: Config,
         action_r, action_t = action_from_logits(
             r_logits, t_logits, generator, deterministic)
         if expert_beta is not None:
-            mix = torch.rand((action_r.shape[0], 1), generator=generator,
-                             device=device) < expert_beta
+            mix = rand_shard((action_r.shape[0], 1), generator,
+                             device) < expert_beta
             action_r = torch.where(mix, exp_r, action_r)
             action_t = torch.where(mix, exp_t, action_t)
         pose = apply_action(action_r, action_t, pose, r_steps, t_steps,

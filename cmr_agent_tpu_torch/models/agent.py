@@ -23,6 +23,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops import kernels
+from ..parallel.mesh import rand_shard
 from .layers import (BatchNorm, Conv2d, GlobalMean, Linear, ResDenseBlock,
                      fold_dense_bn)
 
@@ -143,8 +144,11 @@ def sample_categorical(logits: torch.Tensor,
                        generator: torch.Generator) -> torch.Tensor:
     """One draw per row of ``logits [..., S]`` from ``softmax(logits)``
     by the Gumbel-max trick (as ``jax.random.categorical`` draws), with
-    uniforms from ``generator`` (on the logits' device)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    uniforms from ``generator`` (on the logits' device). Under a dp mesh
+    the logits are this rank's rows and the uniforms are drawn at the
+    global batch's shape (:func:`..parallel.mesh.rand_shard`), so the
+    ranks sample what one process samples."""
+    u = rand_shard(logits.shape, generator, logits.device)
     u = u.clamp_min(torch.finfo(u.dtype).tiny)
     return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
 

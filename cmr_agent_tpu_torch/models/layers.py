@@ -125,17 +125,9 @@ class Dropout(nn.Module):
             return x
         keep = 1.0 - self.p
         # under a mesh the tensor is this rank's shard of a global one:
-        # draw the global mask (the generator is seeded alike on every
-        # rank) and keep this rank's part, as JAX draws one mask for the
-        # whole sharded batch
-        shards = _mesh.row_shards()
-        shape = list(x.shape)
-        for axis, _, count in shards:
-            shape[axis] *= count
-        mask = torch.rand(shape, generator=self.generator,
-                          device=x.device) < keep
-        for axis, index, _ in shards:
-            mask = mask.narrow(axis, index * x.shape[axis], x.shape[axis])
+        # the global mask is drawn and this rank's block kept, as JAX
+        # draws one mask for the whole sharded array
+        mask = _mesh.rand_shard(x.shape, self.generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

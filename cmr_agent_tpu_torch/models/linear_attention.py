@@ -7,8 +7,16 @@ of the sp group takes its shard of the query and key tokens, reduces its
 key shard's ``KV`` / ``K``-sum, all-reduces them over ``sp``
 (:func:`..parallel.sp.sp_linear_attention_message`), finishes its query
 shard, and the shards are gathered back; the value guard divides by the
-global key count. That route is the sharded eval forward's: in ``train()``
-mode or with gradients on it raises, as no entry point trains under ``sp``.
+global key count, and dropout draws the global mask and keeps the rank's
+``(batch, token)`` block. The route trains: the inputs come in through
+:func:`..parallel.mesh.take_shard` and leave through
+:func:`..parallel.mesh.gather_rows`, so the loss downstream (replicated
+over ``sp``) hands each rank its own slice of the cotangent and what lies
+upstream gets the whole gradient on every rank, while the module's own
+parameter gradients are the rank's shard's part: the route marks the
+module (:func:`..parallel.mesh.mark_sp_partial`), and
+:func:`..parallel.mesh.reduce_gradients` sums the marked modules'
+gradients over ``sp``.
 """
 
 from __future__ import annotations
@@ -64,22 +72,19 @@ class LinearAttention(nn.Module):
 
     def _forward_sp(self, x, y, group, rank: int, size: int):
         from ..parallel.sp import sp_linear_attention_message
-        if self.training or (torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.parameters())):
-            raise NotImplementedError(
-                "the sp route of LinearAttention is the sharded eval "
-                "forward's; run it in eval() mode under torch.no_grad()")
         b, l, d = x.shape
         s = y.shape[1]
         if l % size or s % size:
             raise ValueError(f"{l} query and {s} key tokens do not split "
                              f"over sp={size}")
         h, ls, ss = self.num_heads, l // size, s // size
-        x_l = x.narrow(1, rank * ls, ls)
-        y_l = y.narrow(1, rank * ss, ss)
+        _mesh.mark_sp_partial(self)
+        x_l = _mesh.take_shard(x, group, rank, size, dim=1)
+        y_l = x_l if y is x else _mesh.take_shard(y, group, rank, size, dim=1)
         q = F.elu(self.q_proj(x_l).reshape(b, ls, h, d // h)) + 1.0
         k = F.elu(self.k_proj(y_l).reshape(b, ss, h, d // h)) + 1.0
         v = self.v_proj(y_l).reshape(b, ss, h, d // h) / s   # global S
         msg = sp_linear_attention_message(q, k, v, group, self.eps) * s
-        out = self._finish(x_l, msg.reshape(b, ls, d))
+        with _mesh.token_shards(dim=1):
+            out = self._finish(x_l, msg.reshape(b, ls, d))
         return _mesh.gather_rows(out, group, rank, size, dim=1)

@@ -124,3 +124,23 @@ def psum_scalar(x) -> float:
     parts = [torch.empty_like(local) for _ in range(process_count())]
     dist.all_gather(parts, local, group=_HOST_GROUP[0])
     return float(torch.cat(parts).numpy().sum())
+
+
+def broadcast_object(obj, src: int = 0):
+    """Process ``src``'s picklable ``obj`` on every process, over the host
+    group (no device collective); ``obj`` itself in a single-process job."""
+    if process_count() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=_HOST_GROUP[0])
+    return box[0]
+
+
+def gather_objects(obj) -> list:
+    """Every process's picklable ``obj``, in rank order, on every process
+    (over the host group)."""
+    if process_count() == 1:
+        return [obj]
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj, group=_HOST_GROUP[0])
+    return out

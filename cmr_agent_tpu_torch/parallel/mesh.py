@@ -13,10 +13,16 @@ result is what one process computes on the whole batch:
   the running stats are the global batch's; ``Dropout`` draws the global
   batch's mask from its (identically seeded) generator and keeps its own
   rows; the P/R/A metrics count over ``dp``; ``LinearAttention`` takes the
-  sequence-parallel message of :mod:`.sp` when ``sp`` is larger than 1
-  (the eval forward only);
+  sequence-parallel route of :mod:`.sp` when ``sp`` is larger than 1, in
+  the eval forward and in training;
+* every other draw from a generator on a sharded path goes through
+  :func:`rand_shard`, so the stochastic rollout under dp samples the
+  actions one process samples;
 * :func:`make_sharded_geo_train_step` averages the gradients and the
-  losses over ``dp``.
+  losses over ``dp``; with the sp route live, :func:`reduce_gradients`
+  first sums over ``sp`` the gradients of the modules that the route
+  marked (:func:`mark_sp_partial`), the only gradients that are partial
+  there.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -105,11 +112,80 @@ def axis_group(axis: str):
     return mesh.group(axis), mesh.rank(axis), mesh.size(axis)
 
 
+_TOKEN_DIM: list = [None]
+
+
+@contextlib.contextmanager
+def token_shards(dim: int = 1):
+    """Within it, this rank's tensors are also its ``sp`` shard of the
+    global ones along tensor axis ``dim`` (the token axis of a module that
+    works on a token shard, as the sp route of ``LinearAttention`` does)."""
+    saved = _TOKEN_DIM[0]
+    _TOKEN_DIM[0] = dim
+    try:
+        yield
+    finally:
+        _TOKEN_DIM[0] = saved
+
+
 def row_shards():
     """``[(tensor axis, index, count)]``: how this rank's tensors slice the
-    global ones (the batch axis over ``dp``)."""
+    global ones (the batch axis over ``dp``, and inside
+    :func:`token_shards` the token axis over ``sp``)."""
+    out = []
     dp = axis_group("dp")
-    return [] if dp is None else [(0, dp[1], dp[2])]
+    if dp is not None:
+        out.append((0, dp[1], dp[2]))
+    sp = axis_group("sp")
+    if sp is not None and _TOKEN_DIM[0] is not None:
+        out.append((_TOKEN_DIM[0], sp[1], sp[2]))
+    return out
+
+
+def rand_shard(shape, generator: Optional[torch.Generator] = None,
+               device=None) -> torch.Tensor:
+    """``torch.rand(shape)`` for this rank's shard of a global tensor: the
+    global shape is drawn from ``generator`` (seeded alike on every rank)
+    and this rank's block kept (:func:`row_shards`), so the ranks together
+    draw what one process draws for the whole tensor, as JAX draws at the
+    global shape of a sharded array. Outside a mesh it is ``torch.rand``."""
+    shards = row_shards()
+    full = list(shape)
+    for axis, _, count in shards:
+        full[axis] *= count
+    u = torch.rand(full, generator=generator, device=device)
+    for axis, index, _ in shards:
+        u = u.narrow(axis, index * shape[axis], shape[axis])
+    return u
+
+
+def _padded(x: torch.Tensor, rank: int, size: int, dim: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as rank ``rank``'s block of a ``size`` times longer tensor
+    along ``dim``, zeros elsewhere."""
+    n = x.shape[dim]
+    before = [n * rank if d == dim else s for d, s in enumerate(x.shape)]
+    after = [n * (size - rank - 1) if d == dim else s
+             for d, s in enumerate(x.shape)]
+    return torch.cat([x.new_zeros(before, dtype=dtype), x.to(dtype),
+                      x.new_zeros(after, dtype=dtype)], dim=dim)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The gather of :func:`gather_rows`; its backward hands each rank its
+    own slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank: int, size: int, dim: int):
+        ctx.slice = (dim, rank * x.shape[dim], x.shape[dim])
+        work_dtype = x.dtype if x.is_floating_point() else torch.int64
+        full = _padded(x, rank, size, dim, work_dtype)
+        dist.all_reduce(full, group=group)
+        return full.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(*ctx.slice).contiguous(), None, None, None, None
 
 
 def gather_rows(x: torch.Tensor, group, rank: int, size: int,
@@ -117,19 +193,41 @@ def gather_rows(x: torch.Tensor, group, rank: int, size: int,
     """The ranks' equal shards of ``x`` along ``dim`` concatenated in rank
     order on every rank. It is an all-reduce of each rank's shard placed in
     zeros (adding zeros is exact), so every backend that all-reduces
-    does it, gloo with CUDA tensors included; differentiable."""
-    from torch.distributed.nn.functional import all_reduce
-    shape = list(x.shape)
-    n = shape[dim]
-    shape[dim] = n * size
-    work_dtype = x.dtype if x.is_floating_point() else torch.int64
-    before = [n * rank if d == dim else s for d, s in enumerate(shape)]
-    after = [n * (size - rank - 1) if d == dim else s
-             for d, s in enumerate(shape)]
-    full = torch.cat([x.new_zeros(before, dtype=work_dtype),
-                      x.to(work_dtype),
-                      x.new_zeros(after, dtype=work_dtype)], dim=dim)
-    return all_reduce(full, group=group).to(x.dtype)
+    does it, gloo with CUDA tensors included. Differentiable for a loss
+    that every rank of ``group`` computes alike from the result (the sp
+    route's): the backward hands each rank its own slice of the cotangent
+    and sums nothing, because every rank holds the whole cotangent
+    already; summing there, as an all-reduce's own backward does, would
+    scale the gradient by the group's size."""
+    return _GatherRows.apply(x, group, rank, size, dim)
+
+
+class _TakeShard(torch.autograd.Function):
+    """The slice of :func:`take_shard`; its backward gathers the ranks'
+    cotangent slices into the whole cotangent on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank: int, size: int, dim: int):
+        ctx.args = (group, rank, size, dim)
+        n = x.shape[dim] // size
+        return x.narrow(dim, rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, rank, size, dim = ctx.args
+        full = _padded(grad, rank, size, dim, grad.dtype)
+        dist.all_reduce(full, group=group)
+        return full, None, None, None, None
+
+
+def take_shard(x: torch.Tensor, group, rank: int, size: int,
+               dim: int = 1) -> torch.Tensor:
+    """This rank's equal shard of ``x`` (whole and alike on every rank of
+    ``group``) along ``dim``. Its backward all-gathers the ranks' cotangent
+    slices, so what lies upstream (replicated over ``group``) gets the
+    whole gradient on every rank, as one process would."""
+    return _TakeShard.apply(x, group, rank, size, dim)
 
 
 def replicate(tree, mesh: Mesh, src: int = 0):
@@ -197,18 +295,54 @@ def shard_geo_batch(batch: Dict, mesh: Mesh, use_sp: bool = False) -> Dict:
     return out
 
 
+def all_reduce_flat(grads, group, divisor: int = 1) -> None:
+    """``grads`` replaced by their sum over ``group`` (every process where
+    None) divided by ``divisor``, as one all-reduce of the flattened
+    tensors."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    if divisor != 1:
+        flat /= divisor
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def average_gradients(module: torch.nn.Module, mesh: Mesh,
                       axis: str = "dp") -> None:
     """Each gradient of ``module`` replaced by its mean over ``axis`` (one
     all-reduce of the flattened gradients)."""
     if mesh.size(axis) <= 1:
         return
-    grads = [p.grad for p in module.parameters() if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.group(axis))
-    flat /= mesh.size(axis)
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+    all_reduce_flat([p.grad for p in module.parameters()
+                     if p.grad is not None], mesh.group(axis),
+                    mesh.size(axis))
+
+
+_SP_PARTIAL: "weakref.WeakSet[torch.nn.Module]" = weakref.WeakSet()
+
+
+def mark_sp_partial(module: torch.nn.Module) -> None:
+    """Record that ``module`` works on a token shard over ``sp``, so that
+    each rank's gradients of its own parameters are that shard's part of
+    the whole (the sp route of ``LinearAttention`` calls it)."""
+    _SP_PARTIAL.add(module)
+
+
+def reduce_gradients(module: torch.nn.Module, mesh: Mesh) -> None:
+    """The gradients of a step that ran under ``mesh``: the parameters of
+    the submodules that worked on a token shard (:func:`mark_sp_partial`)
+    summed over ``sp`` first, then every gradient averaged over ``dp``;
+    one flattened all-reduce per group. The rest of the model is
+    replicated over ``sp``, each of its ranks holding the whole gradient
+    already, so nothing else is summed there."""
+    if mesh.size("sp") > 1:
+        all_reduce_flat([p.grad for m in module.modules()
+                         if m in _SP_PARTIAL
+                         for p in m.parameters()
+                         if p.grad is not None], mesh.group("sp"))
+    average_gradients(module, mesh, "dp")
 
 
 def mean_over(metrics: Dict[str, torch.Tensor], keys, mesh: Mesh,
@@ -230,10 +364,14 @@ def make_sharded_geo_train_step(cfg: Config, mesh: Mesh):
     (:func:`..train.train_geo.make_geo_train_step` with ``mesh``): the
     BatchNorm statistics, dropout masks, losses, metrics and gradients are
     the global batch's. Every rank holds the same state (:func:`replicate`)
-    and passes an identically seeded generator. ``cfg.compute_dtype``
-    bfloat16 trains as one process does (f32 parameters and statistics,
-    bf16 activations; the BatchNorm sums all-reduced in f32); a model
-    built in another dtype than ``cfg``'s raises at the first step."""
+    and passes an identically seeded generator. On a mesh whose ``sp``
+    axis spans several ranks (JAX's ``shard_geo_batch(..., use_sp=True)``
+    under ``set_mesh``) the ``LinearAttention`` modules take the sp route
+    over it, in the forward and the backward. ``cfg.compute_dtype``
+    bfloat16 trains as one
+    process does (f32 parameters and statistics, bf16 activations; the
+    BatchNorm sums all-reduced in f32); a model built in another dtype
+    than ``cfg``'s raises at the first step."""
     from ..train.train_geo import make_geo_train_step
 
     step = make_geo_train_step(cfg, mesh=mesh)

@@ -69,12 +69,19 @@ def episode_poses(cfg: Config, state):
     return pose_src, to_disentangled(pose_tgt, state["pc"])
 
 
-def make_rollout_fn(cfg: Config, reward_apply_pose: bool = True):
+def make_rollout_fn(cfg: Config, reward_apply_pose: bool = True,
+                    mesh=None):
     """``(agent_state, geo_out, batch, generator, expert_beta=None) ->
     (trajectory, final_pose, pose_target)``: the stochastic rollout with
     expert labels, actions sampled from ``generator`` (on the agent's
     device); ``expert_beta`` is DAgger's scheduled sampling (see
-    :func:`..env.episode.run_episode`)."""
+    :func:`..env.episode.run_episode`). With a
+    :class:`..parallel.mesh.Mesh`, ``geo_out`` and ``batch`` are this
+    rank's dp rows of a global batch and the episode runs under the mesh:
+    every draw is made at the global batch's shape from the (identically
+    seeded) generator, so the ranks' rows of the trajectory are those of
+    one process's rollout of the whole batch."""
+    from ..parallel.mesh import use_mesh
 
     def rollout(agent_state: AgentTrainState, geo_out, batch,
                 generator: torch.Generator,
@@ -82,7 +89,7 @@ def make_rollout_fn(cfg: Config, reward_apply_pose: bool = True):
         agent = agent_state.agent.eval()
         state = episode_state(geo_out, batch)
         pose_src, pose_tgt = episode_poses(cfg, state)
-        with torch.no_grad():
+        with torch.no_grad(), use_mesh(mesh):
             final, _, traj = run_episode(
                 agent, state, pose_src, cfg, cfg.episode_raster_topk(),
                 pose_target=pose_tgt, deterministic=False,

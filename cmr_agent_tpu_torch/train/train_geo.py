@@ -83,14 +83,19 @@ def make_geo_train_step(cfg: Config, mesh=None) -> Callable:
     masks. Metrics are 0-d tensors (no host sync).
 
     With a :class:`..parallel.mesh.Mesh`, ``batch`` is this rank's dp rows
-    of a global batch: the forward runs under the mesh (global BatchNorm
-    statistics, dropout masks and P/R/A counts), the gradients and the
-    losses are averaged over dp, so every rank takes the step one process
-    takes on the global batch. A model whose layers compute in another
-    dtype than ``cfg.compute_dtype`` is refused at its first step
-    (:func:`require_compute_dtype`)."""
-    from ..parallel.mesh import average_gradients, mean_over, use_mesh
+    of a global batch: the forward and the backward run under the mesh
+    (global BatchNorm statistics, dropout masks and P/R/A counts; with an
+    ``sp`` axis larger than 1 the ``LinearAttention`` modules on their
+    sp route), the gradients (:func:`..parallel.mesh.reduce_gradients`
+    when the sp route is live) and the losses are averaged over dp, so
+    every rank takes the step one process takes on the global batch. A
+    model whose layers compute in another dtype than ``cfg.compute_dtype``
+    is refused at its first step (:func:`require_compute_dtype`)."""
+    from ..parallel.mesh import (average_gradients, mean_over,
+                                 reduce_gradients, use_mesh)
     checked = weakref.WeakSet()
+    reduce = (reduce_gradients if mesh is not None and mesh.size("sp") > 1
+              else average_gradients)
 
     def train_step(state: GeoTrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
@@ -104,7 +109,7 @@ def make_geo_train_step(cfg: Config, mesh=None) -> Callable:
             out = state.model(batch, with_loss=True)
             out["loss"].backward()
         if mesh is not None:
-            average_gradients(state.model, mesh)
+            reduce(state.model, mesh)
         state.optimizer.step()
         metrics = {k: out[k].detach() for k in METRIC_KEYS}
         return metrics if mesh is None else mean_over(metrics, LOSS_KEYS,
@@ -192,7 +197,8 @@ class _CapturedStep:
         return {k: v.clone() for k, v in self.metrics.items()}
 
 
-def make_geo_multi_step(cfg: Config, steps_per_call: int) -> Callable:
+def make_geo_multi_step(cfg: Config, steps_per_call: int,
+                        mesh=None) -> Callable:
     """``(state, stacked_batch, generator) -> metrics``: ``steps_per_call``
     optimizer steps (JAX ``train/train_geo.py:83-116``) on
     ``stacked_batch``, whose tensors carry a leading ``[S, B, ...]`` step
@@ -204,7 +210,14 @@ def make_geo_multi_step(cfg: Config, steps_per_call: int) -> Callable:
     captures anew) and replayed ``S`` times; the state's optimizer turns
     capturable (:meth:`.optim.Optimizer.make_capturable`). Capture failing
     raises: the card never falls back to eager steps. On the CPU it is a
-    loop of :func:`make_geo_train_step`."""
+    loop of :func:`make_geo_train_step`. It is one process's: given a
+    ``mesh`` it raises (a sharded run steps through
+    :func:`..parallel.mesh.make_sharded_geo_train_step`, one step a
+    call)."""
+    if mesh is not None:
+        raise ValueError("make_geo_multi_step runs in one process; train "
+                         "under a mesh with parallel.mesh."
+                         "make_sharded_geo_train_step, one step a call")
     step = make_geo_train_step(cfg)
     captured: Optional[_CapturedStep] = None
 

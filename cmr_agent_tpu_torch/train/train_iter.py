@@ -93,7 +93,7 @@ def cost_volume_metrics(cfg: Config, out: Dict[str, torch.Tensor]
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_iter_train_step(cfg: Config) -> Callable:
+def make_iter_train_step(cfg: Config, mesh=None) -> Callable:
     """``(state, iter_state_dict) -> metrics``: one optimizer step of the
     IterModel (JAX ``train/train_iter.py:106-150``). The geo outputs are
     detached, so only the tower takes gradients; the warp (kernel 7 on
@@ -102,16 +102,30 @@ def make_iter_train_step(cfg: Config) -> Callable:
     :meth:`..models.cost_volume.IterModel._score`; JAX wraps the whole
     forward in ``jax.checkpoint``), leaving the same running stats and
     parameters as a plain step. Metrics: :data:`METRIC_KEYS`, 0-d tensors
-    (no host sync)."""
+    (no host sync).
+
+    With a :class:`..parallel.mesh.Mesh`, ``iter_state_dict`` holds this
+    rank's dp rows of a global batch: the forward and the backward run
+    under the mesh, so the tower's BatchNorm statistics (and running
+    stats) are the global batch's, the recomputed segments of a remat
+    step included (they recompute inside the backward, under the same
+    mesh, and issue the same all-reduces in the same order on every
+    rank); the gradients and the metrics are averaged over dp."""
+    from ..parallel.mesh import average_gradients, mean_over, use_mesh
 
     def train_step(state: IterTrainState,
                    batch_state: Dict[str, torch.Tensor]):
         st = {k: v.detach() for k, v in batch_state.items()}
         state.model.train()
         state.optimizer.zero_grad()
-        out = state.model(st, with_loss=True)
-        out["cost_volume_loss"].backward()
+        with use_mesh(mesh):
+            out = state.model(st, with_loss=True)
+            out["cost_volume_loss"].backward()
+        if mesh is not None:
+            average_gradients(state.model, mesh)
         state.optimizer.step()
-        return cost_volume_metrics(cfg, out)
+        metrics = cost_volume_metrics(cfg, out)
+        return metrics if mesh is None else mean_over(metrics, METRIC_KEYS,
+                                                      mesh)
 
     return train_step

@@ -120,7 +120,8 @@ for name in ("models.cost_volume", "train.train_iter", "env.environment",
              "train.train_geo", "train.train_agent", "train.optim",
              "data.loader", "native", "data.augment", "data.kitti",
              "data.nuscenes", "data.label_mapping", "data.smoke",
-             "models.gnn", "examples.convergence_demo"):
+             "models.gnn", "examples.convergence_demo",
+             "tools.multichip_dryrun"):
     assert "cmr_agent_tpu_torch." + name in names, name
 print("imported", len(names))
 """

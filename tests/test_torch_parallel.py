@@ -21,10 +21,12 @@ single-process results and the JAX package's. What they show:
   the single process's (rtol 1e-4, the JAX package's
   ``tests/test_parallel.py`` bounds);
 * the sp linear-attention message and the ``LinearAttention`` module on 2
-  ranks equal JAX's unsharded message and module within rtol 1e-5, and the
-  sharded geo forward (dp or sp) the unsharded one.
+  ranks equal JAX's unsharded message and module within rtol 1e-5, the
+  module's sp route trains (dropout on) with one process's gradients, and
+  the sharded geo forward (dp or sp) equals the unsharded one.
 """
 
+import copy
 import os
 import socket
 import subprocess
@@ -47,7 +49,9 @@ from cmr_agent_tpu_torch.cli import common
 from cmr_agent_tpu_torch.config import micro_config
 from cmr_agent_tpu_torch.data import shard_batch
 from cmr_agent_tpu_torch.env import buffer
-from cmr_agent_tpu_torch.models.layers import BatchNorm, set_dropout_rate
+from cmr_agent_tpu_torch.models.layers import (BatchNorm,
+                                               set_dropout_generator,
+                                               set_dropout_rate)
 from cmr_agent_tpu_torch.models.linear_attention import LinearAttention
 from cmr_agent_tpu_torch.parallel import distributed, mesh as pmesh
 from cmr_agent_tpu_torch.parallel.sp import linear_attention_message
@@ -95,6 +99,7 @@ _WORKER = textwrap.dedent("""
 
     from cmr_agent_tpu_torch.parallel import distributed as D, mesh as M
     from cmr_agent_tpu_torch.parallel.sp import sp_linear_attention_message
+    from cmr_agent_tpu_torch.models.layers import set_dropout_generator
     from cmr_agent_tpu_torch.models.linear_attention import LinearAttention
     from cmr_agent_tpu_torch.models.multi_head import MultiHeadModel
     from cmr_agent_tpu_torch.train import train_agent, train_geo
@@ -172,11 +177,14 @@ _WORKER = textwrap.dedent("""
     with M.use_mesh(sp):
         with torch.no_grad():
             out["sp_module"] = la(x, y)
-        try:
-            la(x, y)
-            out["sp_grad_refused"] = False
-        except NotImplementedError:
-            out["sp_grad_refused"] = True
+        # and in training, dropout on: the sp route's gradients
+        la.train()
+        set_dropout_generator(la, torch.Generator().manual_seed(5))
+        xg, yg = (t.clone().requires_grad_() for t in (x, y))
+        (la(xg, yg) * inp["la_w"]).sum().backward()
+    M.reduce_gradients(la, sp)
+    out["sp_grads"] = ({k: p.grad.clone() for k, p in la.named_parameters()},
+                       xg.grad, yg.grad)
     torch.save(out, f"{io}/rank{pid}.pt")
     D.barrier("end", timeout_s=120)
     D.shutdown()
@@ -266,11 +274,14 @@ def pair(tmp_path_factory):
     v = rng.normal(size=(2, 40, 4, 8))
     qkv = [torch.from_numpy(a.astype(np.float32)) for a in (q, k, v)]
     la, la_xy, la_want = _jax_linear_attention()
+    la_w = torch.from_numpy(np.random.default_rng(4).normal(
+        size=la_want.shape).astype(np.float32))
     bcfg = micro_config(train_batch_size=B, compute_dtype="bfloat16")
     torch.save({"cfg": cfg, "batch": batch, "model": model.state_dict(),
                 "bf16_cfg": bcfg,
                 "agent_cfg": acfg, "geo_out": geo_out, "mb": mb,
                 "qkv": qkv, "la": la.state_dict(), "la_xy": la_xy,
+                "la_w": la_w,
                 "la_dim": LA_SHAPE["c"], "la_heads": LA_SHAPE["heads"]},
                io / "inputs.pt")
     outs = _run_pair_retry(io)
@@ -299,7 +310,7 @@ def pair(tmp_path_factory):
                 bf16_state=bstate, bf16_metrics=bf16_metrics,
                 val=(rte, rre), ppo=ppo,
                 agent=agent, forward=forward, qkv=qkv, la=la, la_xy=la_xy,
-                la_want=la_want)
+                la_want=la_want, la_w=la_w)
 
 
 def _checksum(sd):
@@ -442,15 +453,29 @@ def test_sp_message_equals_jax_unsharded_message(pair):
 
 
 def test_sp_linear_attention_module_equals_jax_module(pair):
-    """The live module takes the sp route under a mesh with sp = 2 (and
-    refuses it with gradients on); its output is JAX's unsharded one."""
+    """The live module takes the sp route under a mesh with sp = 2; its
+    output is JAX's unsharded one. In ``train()`` mode, dropout on (the
+    masks drawn at the global shape, each rank keeping its token block),
+    the route trains: the module's gradients summed over sp
+    (``reduce_gradients``) and its inputs' gradients are one process's,
+    within rtol 1e-5 and 1e-6 of each tensor's largest entry."""
     with torch.no_grad():
         np.testing.assert_allclose(pair["la"].eval()(*pair["la_xy"]).numpy(),
                                    pair["la_want"], rtol=1e-5, atol=1e-6)
+    la = copy.deepcopy(pair["la"]).train()
+    set_dropout_generator(la, torch.Generator().manual_seed(5))
+    xg, yg = (t.clone().requires_grad_() for t in pair["la_xy"])
+    (la(xg, yg) * pair["la_w"]).sum().backward()
+    want = [{k: p.grad for k, p in la.named_parameters()}, xg.grad, yg.grad]
     for r in pair["ranks"]:
         np.testing.assert_allclose(r["sp_module"].numpy(), pair["la_want"],
                                    rtol=1e-5, atol=1e-6)
-        assert r["sp_grad_refused"]
+        params, gx, gy = r["sp_grads"]
+        assert sorted(params) == sorted(want[0])
+        for got, w in [(params[k], want[0][k]) for k in params] + [
+                (gx, want[1]), (gy, want[2])]:
+            np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-5,
+                                       atol=1e-6 * float(w.abs().max()))
 
 
 @pytest.mark.parametrize("axis", ["dp", "sp"])
